@@ -1,0 +1,170 @@
+"""Builds and loads the package's hand-written CUDA kernels.
+
+Each `csrc/*.cu` source is compiled by `nvcc` for `sm_90a` into a shared
+library with a plain C interface and loaded with `ctypes`; all sources are
+compiled at once, one `nvcc` process each.  Nothing here runs at import
+time: the first kernel launch calls `load()`.  Libraries go under `build/`
+next to the package (or `$GPD_TORCH_BUILD_DIR`), named by a hash of every
+file in `csrc/` and the compiler flags, so an edited source is rebuilt and
+an unchanged one is reused.
+
+A build failure is an exception.  There is no other way to run a kernel on
+a CUDA tensor, and no fallback.
+
+`StepParams` mirrors `GpdStepParams` in `csrc/drone_kernels.cuh` field by
+field; `load()` checks the two sizes against each other.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# No --use_fast_math: it swaps sinf/cosf/sqrtf and division for
+# approximations, and the exponential-map quaternion update is sensitive.
+# -Xptxas -v costs nothing and puts each kernel's registers, stack frame and
+# spills into `build_log`.
+
+MAX_DRONES = 8  # GPD_MAX_DRONES
+
+# kernel name -> (source file, C entry point)
+KERNELS = {
+    "dyn_ctrl_step": ("dyn_ctrl_step.cu", "gpd_dyn_ctrl_step"),
+    "fused_env_step": ("fused_env_step.cu", "gpd_fused_env_step"),
+}
+
+
+class DroneConsts(ctypes.Structure):
+    """Mirror of `GpdDrone`."""
+
+    _fields_ = [(name, ctypes.c_float) for name in (
+        "kf", "km_s", "k_arm", "inv_m", "gm", "jx", "jy", "jz",
+        "inv_jx", "inv_jy", "inv_jz", "hover_rpm")] + [
+        ("plus_mixer", ctypes.c_int)]
+
+
+class StepParams(ctypes.Structure):
+    """Mirror of `GpdStepParams`: every constant of one configuration."""
+
+    _fields_ = [
+        ("drone", DroneConsts),
+        ("n_drones", ctypes.c_int),
+        ("n_substeps", ctypes.c_int),
+        ("act_dim", ctypes.c_int),
+        ("buf_rows", ctypes.c_int),
+        ("act_type", ctypes.c_int),
+        ("task_id", ctypes.c_int),
+        ("dt", ctypes.c_float),
+        ("half_dt", ctypes.c_float),
+        ("pyb_freq", ctypes.c_float),
+        ("episode_len_sec", ctypes.c_float),
+        ("box_xy", ctypes.c_float),
+        ("box_z", ctypes.c_float),
+        ("tilt", ctypes.c_float),
+        ("init16", (ctypes.c_float * 16) * MAX_DRONES),
+        ("target", (ctypes.c_float * 3) * MAX_DRONES),
+    ]
+
+
+_P = ctypes.c_void_p  # every pointer and the stream: never a bare int
+_ARGTYPES = {
+    # state, rpm, out, obs12 (may be NULL), B, ld, params, stream
+    "gpd_dyn_ctrl_step": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                          ctypes.POINTER(StepParams), _P],
+    # carry, action rows, carry out, outs, B, ld, params, stream
+    "gpd_fused_env_step": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                           ctypes.POINTER(StepParams), _P],
+}
+
+_loaded: dict | None = None
+build_seconds: float | None = None  # wall time `load()` spent in `build()`
+build_log: dict = {}                # kernel name -> nvcc output, when built
+
+
+def find_nvcc() -> str:
+    """Path of `nvcc`, from PATH, $CUDA_HOME or the toolkit's usual place."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if root and os.path.isfile(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build_dir() -> str:
+    return os.environ.get(
+        "GPD_TORCH_BUILD_DIR",
+        os.path.join(os.path.dirname(PACKAGE_DIR), "build", "kernels"))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(os.listdir(CSRC_DIR)):
+        if name.endswith((".cu", ".cuh")):
+            h.update(name.encode())
+            with open(os.path.join(CSRC_DIR, name), "rb") as f:
+                h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def build() -> dict:
+    """Compile whatever is not built yet; return {kernel name: library path}.
+
+    The compilers' output is kept in `build_log`.
+    """
+    tag = _source_hash()
+    out_dir = build_dir()
+    os.makedirs(out_dir, exist_ok=True)
+    paths, procs = {}, []
+    for name, (src, _) in KERNELS.items():
+        lib = os.path.join(out_dir, f"lib{name}_{tag}.so")
+        paths[name] = lib
+        if os.path.isfile(lib):
+            continue
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC_DIR, src)]
+        procs.append((name, lib, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for name, lib, tmp, cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed for {name} ({' '.join(cmd)}):\n{out}")
+        build_log[name] = out
+        os.replace(tmp, lib)  # atomic: concurrent processes may build too
+    return paths
+
+
+def load() -> dict:
+    """Build if needed, load, and return {kernel name: bound C function}."""
+    global _loaded, build_seconds
+    if _loaded is not None:
+        return _loaded
+    t0 = time.perf_counter()
+    paths = build()
+    build_seconds = time.perf_counter() - t0
+    fns = {}
+    for name, (_, entry) in KERNELS.items():
+        lib = ctypes.CDLL(paths[name])
+        lib.gpd_params_size.restype = ctypes.c_int
+        if lib.gpd_params_size() != ctypes.sizeof(StepParams):
+            raise RuntimeError(
+                f"{name}: GpdStepParams is {lib.gpd_params_size()} bytes, "
+                f"its ctypes mirror {ctypes.sizeof(StepParams)}")
+        fn = getattr(lib, entry)
+        fn.argtypes = _ARGTYPES[entry]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    _loaded = fns
+    return fns

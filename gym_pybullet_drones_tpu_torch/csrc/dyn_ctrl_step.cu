@@ -1,0 +1,61 @@
+// dyn_ctrl_step: one DYN control step (all substeps) per launch.
+//
+// Hopper counterpart of the Pallas TPU kernel ops/pallas_dyn.py:
+// dyn_ctrl_step.  One thread per (env x drone) column of the (16, B) state
+// block; the column index is the contiguous one, so every row load and
+// store is coalesced.  The drone's state stays in registers through all
+// substeps.  Tail threads are masked; B needs no padding.
+#include <cuda_runtime.h>
+
+#include "drone_kernels.cuh"
+
+__global__ void dyn_ctrl_step_kernel(const float* __restrict__ state,
+                                     const float* __restrict__ rpm,
+                                     float* __restrict__ out,
+                                     float* __restrict__ obs12, int B, int ld,
+                                     const __grid_constant__ GpdStepParams p) {
+    const int col = blockIdx.x * blockDim.x + threadIdx.x;
+    if (col >= B) return;
+
+    float s[GPD_S];
+#pragma unroll
+    for (int k = 0; k < 13; ++k) s[k] = state[(size_t)k * ld + col];
+    s[13] = s[14] = s[15] = 0.0f;
+    const float r0 = rpm[col], r1 = rpm[(size_t)ld + col],
+                r2 = rpm[(size_t)2 * ld + col], r3 = rpm[(size_t)3 * ld + col];
+
+    float thrust, xt, yt, zt;
+    gpd_motor_mix(p.drone, r0, r1, r2, r3, thrust, xt, yt, zt);
+    gpd_dyn_substeps(p.drone, p.n_substeps, p.dt, p.half_dt, s, thrust, xt,
+                     yt, zt);
+
+#pragma unroll
+    for (int k = 0; k < GPD_S; ++k) out[(size_t)k * ld + col] = s[k];
+
+    if (obs12 != nullptr) {
+        // the 12-row kinematic observation block of the RL tasks:
+        // pos, rpy, vel, world ang-vel
+        float roll, pitch, yaw;
+        gpd_quat_rpy(s[3], s[4], s[5], s[6], roll, pitch, yaw);
+        const float o[12] = {s[0], s[1], s[2], roll,  pitch, yaw,
+                             s[7], s[8], s[9], s[13], s[14], s[15]};
+#pragma unroll
+        for (int k = 0; k < 12; ++k) obs12[(size_t)k * ld + col] = o[k];
+    }
+}
+
+extern "C" int gpd_params_size() { return (int)sizeof(GpdStepParams); }
+
+// Launches on `stream`, does not synchronise, allocates nothing.  All
+// blocks share the row stride `ld` (elements between rows).  `obs12` may be
+// NULL.  Returns cudaGetLastError().
+extern "C" int gpd_dyn_ctrl_step(const float* state, const float* rpm,
+                                 float* out, float* obs12, int B, int ld,
+                                 const GpdStepParams* p, void* stream) {
+    if (B <= 0) return 0;
+    const int threads = 128;
+    const int blocks = (B + threads - 1) / threads;
+    dyn_ctrl_step_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        state, rpm, out, obs12, B, ld, *p);
+    return (int)cudaGetLastError();
+}

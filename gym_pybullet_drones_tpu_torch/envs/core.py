@@ -1,0 +1,216 @@
+"""Functional environment core: config, state, reset/step (DYN physics).
+
+Counterpart of the JAX package's `envs/core.py`.  An environment is a pure
+function over a NamedTuple of tensors:
+
+    step(cfg, task, state, action) -> (state, obs, reward, term, trunc, info)
+
+The subclass hooks of the reference's template-method engine
+(BaseAviary.py:1018-1101) are methods of a frozen Task dataclass
+(`envs/tasks.py`).  Where the JAX package maps these functions over envs
+with `vmap`, here every function broadcasts over leading batch dimensions
+written out: leaves are (..., N, k) with N = num_drones.
+
+Stepping semantics parity (reference BaseAviary.py:339-383):
+- preprocess action once per control step,
+- PYB_STEPS_PER_CTRL = pyb_freq // ctrl_freq physics substeps,
+- obs/reward/terminated/truncated computed once per control step,
+- step_counter advances by PYB_STEPS_PER_CTRL, AFTER the hooks ran.
+
+Only `Physics.DYN` is ported; the PYB family (aero effects, PGS contact)
+is ROADMAP.md queue 1 item 11 and raises NotImplementedError until then.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from gym_pybullet_drones_tpu_torch.params import DroneParams
+from gym_pybullet_drones_tpu_torch.utils.device import resolve_device
+from gym_pybullet_drones_tpu_torch.utils.enums import Physics
+from gym_pybullet_drones_tpu_torch.ops import quat as quat_ops
+from gym_pybullet_drones_tpu_torch.ops.dynamics import DynState, dyn_step
+
+
+class EnvState(NamedTuple):
+    """Full simulation state (N = num_drones; leading batch dims allowed).
+
+    The embedded-PID carry and the reset-noise generator state of the JAX
+    package's EnvState join when the PID-family actions and randomized
+    resets are ported (ROADMAP.md queue 1 item 10).
+    """
+
+    pos: torch.Tensor            # (..., N, 3)
+    quat: torch.Tensor           # (..., N, 4) xyzw
+    vel: torch.Tensor            # (..., N, 3)
+    rpy_rates: torch.Tensor      # (..., N, 3)  body rates carry (DYN mode)
+    ang_v: torch.Tensor          # (..., N, 3)  world angular velocity
+    last_rpm: torch.Tensor       # (..., N, 4)  last applied rpm
+    action_buffer: torch.Tensor  # (..., N, BUF, A) action history, oldest
+                                 # first, drone-major (the reference's deque
+                                 # is time-major, BaseRLAviary.py:66-67)
+    step_counter: torch.Tensor   # (...,) int32, counts PYB substeps
+
+
+@dataclasses.dataclass(frozen=True)
+class AviaryConfig:
+    """Static environment configuration (hashable).
+
+    Mirrors the reference constructor surface (BaseAviary.py:25-40) minus the
+    GUI/recording options.  `obstacles` and `solver_iterations` belong to
+    the PYB-family modes and are carried for API parity only.
+    """
+
+    drone: DroneParams
+    num_drones: int = 1
+    physics: Physics = Physics.PYB
+    pyb_freq: int = 240
+    ctrl_freq: int = 240
+    neighbourhood_radius: float = float("inf")
+    # initial poses as nested tuples (hashable); None -> reference default grid
+    init_xyzs: tuple | None = None
+    init_rpys: tuple | None = None
+    obstacles: tuple = ()
+    solver_iterations: int = 4
+
+    def __post_init__(self):
+        if self.pyb_freq % self.ctrl_freq != 0:
+            raise ValueError("pyb_freq must be divisible by ctrl_freq")
+
+    @property
+    def steps_per_ctrl(self) -> int:
+        return self.pyb_freq // self.ctrl_freq
+
+    @property
+    def pyb_dt(self) -> float:
+        return 1.0 / self.pyb_freq
+
+    @property
+    def ctrl_dt(self) -> float:
+        return 1.0 / self.ctrl_freq
+
+    def default_init_xyzs(self, dtype=torch.float32,
+                          device=None) -> torch.Tensor:
+        """Reference default spawn grid (BaseAviary.py:194-197), computed
+        natively in `dtype` so float64 callers see the exact doubles.
+        `device=None` is the CUDA card, as everywhere in the package."""
+        device = resolve_device(device)
+        if self.init_xyzs is not None:
+            return torch.tensor(self.init_xyzs, dtype=dtype, device=device)
+        d = self.drone
+        i = torch.arange(self.num_drones, dtype=dtype, device=device)
+        return torch.stack(
+            [i * 4 * d.l, i * 4 * d.l, torch.full_like(i, d.init_z)], dim=-1)
+
+    def default_init_rpys(self, dtype=torch.float32,
+                          device=None) -> torch.Tensor:
+        device = resolve_device(device)
+        if self.init_rpys is not None:
+            return torch.tensor(self.init_rpys, dtype=dtype, device=device)
+        return torch.zeros((self.num_drones, 3), dtype=dtype, device=device)
+
+
+def require_dyn(cfg: AviaryConfig) -> None:
+    if cfg.physics != Physics.DYN:
+        raise NotImplementedError(
+            f"{cfg.physics}: only Physics.DYN is ported; the PYB family is "
+            "ROADMAP.md queue 1 item 11 (ops/aero.py + ops/rigid_body.py)")
+
+
+def state_vector(state: EnvState) -> torch.Tensor:
+    """(..., N, 20) per-drone state [pos, quat, rpy, vel, ang_v, last_rpm].
+
+    Layout parity: reference BaseAviary._getDroneStateVector (:541-561).
+    """
+    rpy = quat_ops.quat_to_rpy(state.quat)
+    return torch.cat(
+        [state.pos, state.quat, rpy, state.vel, state.ang_v, state.last_rpm],
+        dim=-1)
+
+
+def _apply_physics_substep(cfg: AviaryConfig, state: EnvState,
+                           rpm: torch.Tensor) -> EnvState:
+    """One physics substep (reference :349-372), general dtype."""
+    dyn = DynState(pos=state.pos, quat=state.quat, vel=state.vel,
+                   rpy_rates=state.rpy_rates, ang_v=state.ang_v)
+    out = dyn_step(cfg.drone, dyn, rpm, cfg.pyb_dt)
+    return state._replace(pos=out.pos, quat=out.quat, vel=out.vel,
+                          rpy_rates=out.rpy_rates, ang_v=out.ang_v,
+                          last_rpm=rpm)
+
+
+def reset(cfg: AviaryConfig, task, dtype=torch.float32, device=None):
+    """Initial (state, obs, info) of ONE environment, leaves (N, k).
+
+    Deterministic like the reference (its reset() ignores the seed,
+    BaseAviary.py:243).  A task with reset noise is refused: randomized
+    resets are not ported yet.
+    """
+    require_dyn(cfg)
+    if any(getattr(task, f, 0.0) for f in
+           ("reset_pos_noise", "reset_rpy_noise", "reset_vel_noise")):
+        raise NotImplementedError("randomized resets are not ported yet")
+    device = resolve_device(device)
+    n = cfg.num_drones
+    xyz = cfg.default_init_xyzs(dtype, device)
+    quat = quat_ops.rpy_to_quat(cfg.default_init_rpys(dtype, device))
+    buf_size, act_dim = task.action_buffer_shape(cfg)
+    zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
+    state = EnvState(
+        pos=xyz,
+        quat=quat,
+        vel=zeros(n, 3),
+        rpy_rates=zeros(n, 3),
+        ang_v=zeros(n, 3),
+        last_rpm=zeros(n, 4),
+        action_buffer=zeros(n, buf_size, act_dim),
+        step_counter=torch.zeros((), dtype=torch.int32, device=device),
+    )
+    return state, task.compute_obs(cfg, state), {}
+
+
+def step(cfg: AviaryConfig, task, state: EnvState, action: torch.Tensor):
+    """One control step: (state, obs, reward, terminated, truncated, info).
+
+    Control-flow parity with reference BaseAviary.step (:259-383).
+    """
+    require_dyn(cfg)
+    action = torch.as_tensor(action, dtype=state.pos.dtype,
+                             device=state.pos.device)
+    rpm, state = task.preprocess_action(cfg, state, action)
+    for _ in range(cfg.steps_per_ctrl):
+        state = _apply_physics_substep(cfg, state, rpm)
+    # Hooks see the PRE-increment step counter: the reference advances
+    # step_counter only after obs/reward/terminated/truncated
+    # (BaseAviary.py:376-382), so a task's time-based truncation counts the
+    # substeps of *previous* control steps only.
+    obs = task.compute_obs(cfg, state)
+    reward = task.compute_reward(cfg, state)
+    terminated = task.compute_terminated(cfg, state)
+    truncated = task.compute_truncated(cfg, state)
+    state = state._replace(
+        step_counter=state.step_counter + cfg.steps_per_ctrl)
+    return state, obs, reward, terminated, truncated, {}
+
+
+def step_autoreset(cfg: AviaryConfig, task, state: EnvState,
+                   action: torch.Tensor):
+    """step() + masked auto-reset on done, for batched RL rollouts.
+
+    Done envs return the terminal reward/flags but the carried state is
+    re-initialized, and the post-reset obs is returned (Gymnasium VecEnv
+    convention).  Leading batch dims of `state` select per env.
+    """
+    next_state, obs, reward, term, trunc, info = step(cfg, task, state, action)
+    done = torch.logical_or(term, trunc)               # (...,)
+    init_state, init_obs, _ = reset(cfg, task, dtype=state.pos.dtype,
+                                    device=state.pos.device)
+
+    def pick(i, nxt):
+        d = done.reshape(done.shape + (1,) * (nxt.dim() - done.dim()))
+        return torch.where(d, i, nxt)
+    new_state = EnvState(*(pick(i, nxt)
+                           for i, nxt in zip(init_state, next_state)))
+    return new_state, pick(init_obs, obs), reward, term, trunc, info

@@ -1,0 +1,211 @@
+"""Fast batched stepping path: kernel physics under the task layer.
+
+Counterpart of the JAX package's `envs/fast.py`, the throughput
+configuration used by benchmarks and large-scale training.  Two entry points:
+
+- `make_batched_step`: an inspectable `EnvState` carry with the (env,
+  drone) axes collapsed, leaves (B*N, k).  The DYN physics of a whole
+  control step is ONE kernel launch over the flattened batch
+  (`ops/kernel_dyn.py`); the task logic (action mapping, obs, reward,
+  termination, auto-reset) is tensor code on the same flat leaves via the
+  tasks' `_map_to_rpm` / `flat_post` hooks.  Deterministic tasks auto-reset
+  to a CONSTANT state, tiled once to the batch.
+- `make_fused_rollout`: the carry is one opaque (RC, B) row block and the
+  whole control step is ONE kernel launch (`ops/kernel_fused.py`).
+
+Where the JAX package scans on the device, a rollout here is a Python loop
+with one launch per control step; each takes the `device` the
+state lives on (None = the CUDA card; "cpu" runs the kernels' plain PyTorch
+versions).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from gym_pybullet_drones_tpu_torch.envs import core
+from gym_pybullet_drones_tpu_torch.ops import kernel_dyn, kernel_fused
+from gym_pybullet_drones_tpu_torch.ops.dynamics import DynState
+from gym_pybullet_drones_tpu_torch.utils.device import resolve_device
+from gym_pybullet_drones_tpu_torch.utils.enums import (
+    ActionType, ObservationType)
+
+_NOISE_FIELDS = ("reset_pos_noise", "reset_rpy_noise", "reset_vel_noise")
+
+
+def _flat_reset(cfg, task, num_envs: int, device):
+    """One env's reset tiled to the flat (B*N, k) carry, and its obs
+    (B, N, D).  Computed once per call: deterministic resets are a
+    constant."""
+    s1, obs1, _ = core.reset(cfg, task, device=device)
+    tile = lambda x: x.repeat((num_envs,) + (1,) * (x.dim() - 1))
+    state = core.EnvState(
+        pos=tile(s1.pos), quat=tile(s1.quat), vel=tile(s1.vel),
+        rpy_rates=tile(s1.rpy_rates), ang_v=tile(s1.ang_v),
+        last_rpm=tile(s1.last_rpm),
+        action_buffer=tile(s1.action_buffer.flatten(1)),   # (B*N, BUF*A)
+        step_counter=torch.zeros((num_envs,), dtype=torch.int32,
+                                 device=device))
+    return state, obs1.expand((num_envs,) + obs1.shape)
+
+
+def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
+                      autoreset: bool = True, obs_layout: str = "drone",
+                      device=None):
+    """Build step_fn over batched EnvState with a flattened (B*N, ...) carry.
+
+    Returns (reset_fn, step_fn); reset_fn(seed) -> (state, obs);
+    step_fn(state, action (B, N, A)) -> (state, obs, reward, term, trunc)
+    with per-env leading axes on the outputs (reward/term/trunc (B,)).
+
+    The state is float32 and every control step goes through the
+    `dyn_ctrl_step` kernel (float64 parity runs use `core.step`).
+
+    obs_layout: "drone" -> obs (B, N, D) (reference per-drone layout);
+    "flat" -> obs (B, N*D).
+    """
+    if obs_layout not in ("drone", "flat"):
+        raise ValueError(f"unknown obs_layout {obs_layout!r}")
+    core.require_dyn(cfg)
+    if any(getattr(task, f, 0.0) for f in _NOISE_FIELDS):
+        raise NotImplementedError("randomized resets are not ported yet")
+    device = resolve_device(device)
+    n = cfg.num_drones
+    bn = num_envs * n
+    buf_len, act_dim = task.action_buffer_shape(cfg)
+    # ask the kernel for the 12-row obs block when the task consumes it
+    want_obs12 = getattr(task, "obs", None) == ObservationType.KIN
+
+    init_flat, init_obs = _flat_reset(cfg, task, num_envs, device)
+    init_obs_flat = init_obs.reshape(bn, -1)               # (B*N, D)
+
+    def _finalize_obs(obs):
+        """Flat-hook obs (B*N, D) -> the requested output layout."""
+        if obs_layout == "drone":
+            return obs.reshape(num_envs, n, obs.shape[1])
+        return obs.reshape(num_envs, n * obs.shape[1])
+
+    def reset_fn(seed: int = 0):
+        # deterministic: the seed is accepted for API parity and unused
+        return init_flat, _finalize_obs(init_obs_flat)
+
+    def _physics(flat: core.EnvState, flat_rpm: torch.Tensor):
+        """Advance the physics on the flat carry -> (state, obs12 | None)."""
+        dyn = DynState(pos=flat.pos, quat=flat.quat, vel=flat.vel,
+                       rpy_rates=flat.rpy_rates, ang_v=flat.ang_v)
+        out = kernel_dyn.dyn_ctrl_step(cfg.drone, dyn, cfg.steps_per_ctrl,
+                                       cfg.pyb_dt, flat_rpm, want_obs12)
+        out, obs12 = out if want_obs12 else (out, None)
+        return flat._replace(
+            pos=out.pos, quat=out.quat, vel=out.vel,
+            rpy_rates=out.rpy_rates, ang_v=out.ang_v,
+            last_rpm=flat_rpm), obs12
+
+    def step_fn(flat: core.EnvState, action):
+        action = torch.as_tensor(action, dtype=torch.float32, device=device)
+        a = action.reshape(bn, act_dim)
+        if buf_len > 0:
+            flat = flat._replace(action_buffer=torch.cat(
+                [flat.action_buffer[:, act_dim:], a], dim=-1))
+        rpm, flat = task._map_to_rpm(cfg, flat, a)
+        flat, obs12 = _physics(flat, rpm)
+        # hooks see the PRE-increment counter (reference BaseAviary.py:376-382)
+        obs, reward, term, trunc = task.flat_post(cfg, flat, num_envs, n,
+                                                  obs12=obs12)
+        flat = flat._replace(
+            step_counter=flat.step_counter + cfg.steps_per_ctrl)
+        if not autoreset:
+            return flat, _finalize_obs(obs), reward, term, trunc
+        done = torch.logical_or(term, trunc)                   # (B,)
+        done_bn = done.repeat_interleave(n)                    # (B*N,)
+
+        def pick(i, nxt):
+            d = done_bn if nxt.shape[0] == bn and nxt.dim() > 1 else done
+            return torch.where(d.reshape((-1,) + (1,) * (nxt.dim() - 1)),
+                               i, nxt)
+        flat = core.EnvState(*(pick(i, nxt)
+                               for i, nxt in zip(init_flat, flat)))
+        obs = torch.where(done_bn[:, None], init_obs_flat, obs)
+        return flat, _finalize_obs(obs), reward, term, trunc
+
+    return reset_fn, step_fn
+
+
+def fused_spec(cfg: core.AviaryConfig, task) -> kernel_fused.FusedSpec:
+    """Check that (cfg, task) is eligible for the fused kernel and return
+    its constants, the reset state of one env among them.
+
+    Eligibility (raises ValueError): KIN observations, RPM or ONE_D_RPM
+    actions, deterministic resets, a task implementing `row_post`.
+    Physics modes other than DYN raise NotImplementedError.
+    """
+    if getattr(task, "obs", None) != ObservationType.KIN:
+        raise ValueError("fused rollout requires KIN observations")
+    if task.act not in (ActionType.RPM, ActionType.ONE_D_RPM):
+        raise ValueError(f"fused rollout does not support {task.act} yet")
+    if getattr(task, "row_post", None) is None:
+        raise ValueError("task has no row_post hook")
+    if any(getattr(task, f, 0.0) for f in _NOISE_FIELDS):
+        raise ValueError("fused rollout requires deterministic resets")
+    s1, _, _ = core.reset(cfg, task, device="cpu")
+    flat16_1 = torch.cat(
+        [s1.pos, s1.quat, s1.vel, s1.rpy_rates, s1.ang_v], dim=-1)  # (N, 16)
+    return kernel_fused.FusedSpec(
+        cfg, task, tuple(tuple(row) for row in flat16_1.tolist()))
+
+
+def make_fused_rollout(cfg: core.AviaryConfig, task, num_envs: int,
+                       obs_layout: str = "flat", device=None):
+    """Fully-fused rollout stepping: ONE kernel launch and a ONE-buffer
+    carry per control step (ops/kernel_fused.py) — physics, action buffer,
+    task reward/termination, obs assembly, and auto-reset all in-kernel.
+
+    Returns (reset_fn, step_fn): reset_fn() -> (carry, obs);
+    step_fn(carry, action (B, N, A)) -> (carry, obs, reward, term, trunc).
+    The carry is an opaque (RC, B) float32 row block (columns = envs); use
+    make_batched_step for an inspectable EnvState carry.
+
+    obs_layout: "flat" (B, N*D), "drone" (B, N, D), or "rows" (N*D, B), the
+    kernel's own layout; the first two are transposed views, not copies.
+
+    Eligibility is `fused_spec`'s; fallback is NOT automatic.
+    """
+    if obs_layout not in ("flat", "drone", "rows"):
+        raise ValueError(f"unknown obs_layout {obs_layout!r}")
+    spec = fused_spec(cfg, task)
+    device = resolve_device(device)
+    n, act_dim, buf_rows = spec.n, spec.act_dim, spec.buf_rows
+    bn = num_envs * n
+    obs_dim = spec.obs_rows_per
+    init16 = np.asarray(spec.init16, np.float32)               # (N, 16)
+    obs1 = core.reset(cfg, task, device="cpu")[1].reshape(1, n * obs_dim)
+
+    def reset_fn(seed: int = 0):
+        # deterministic: the seed is accepted for API parity and unused
+        tiled = np.tile(init16, (num_envs, 1))                 # (B*N, 16)
+        leaves = {
+            "pos": tiled[:, 0:3], "quat": tiled[:, 3:7],
+            "vel": tiled[:, 7:10], "rpy_rates": tiled[:, 10:13],
+            "ang_v": tiled[:, 13:16],
+            "last_rpm": np.zeros((bn, 4), np.float32),
+            "action_buffer": np.zeros((bn, buf_rows), np.float32),
+            "step_counter": np.zeros((num_envs,), np.float32),
+        }
+        carry = kernel_fused.pack_carry(leaves, n, buf_rows, num_envs,
+                                        task.act, device)
+        obs = obs1.to(device).repeat(num_envs, 1)
+        if obs_layout == "drone":
+            obs = obs.reshape(num_envs, n, obs_dim)
+        elif obs_layout == "rows":
+            obs = obs.t().contiguous()
+        return carry, obs
+
+    def step_fn(carry, action):
+        # (B, N, A) -> (N*A, B) drone-major action rows
+        a_rows = torch.as_tensor(action, dtype=torch.float32, device=device) \
+            .reshape(num_envs, n * act_dim).t().contiguous()
+        carry, outs = kernel_fused.fused_env_step(spec, carry, a_rows)
+        return (carry,) + kernel_fused.unpack_outs(outs, n, buf_rows,
+                                                   obs_layout)
+
+    return reset_fn, step_fn

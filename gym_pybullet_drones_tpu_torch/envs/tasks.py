@@ -1,0 +1,310 @@
+"""Task layer: action preprocessing, observations, rewards, termination.
+
+Counterpart of the JAX package's `envs/tasks.py` for the RL hover tasks:
+- RLTask        <- BaseRLAviary    (reference envs/BaseRLAviary.py)
+- HoverTask     <- HoverAviary     (reference envs/HoverAviary.py)
+- MultiHoverTask<- MultiHoverAviary(reference envs/MultiHoverAviary.py)
+
+Each task is a frozen (hashable) dataclass; its methods are pure functions
+of (cfg, state).  The per-env methods broadcast over leading batch dims
+(leaves (..., N, k)); the `flat_*` hooks work on the flattened (B*N, k)
+carry of `envs/fast.py`; `row_post` works on (B,) row tensors and is what
+the fused kernel computes (`csrc/drone_kernels.cuh` holds its CUDA twin,
+selected by `row_consts().task_id`).
+
+RPM and ONE_D_RPM actions and KIN observations are ported.  The PID-family
+actions (ROADMAP.md queue 1 item 10) and RGB observations (item 12) raise
+NotImplementedError.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from gym_pybullet_drones_tpu_torch.utils.enums import (
+    ActionType, ObservationType)
+from gym_pybullet_drones_tpu_torch.ops import quat as quat_ops
+from gym_pybullet_drones_tpu_torch.envs.core import AviaryConfig, EnvState
+
+# task ids of the fused kernel (GPD_TASK_* in csrc/drone_kernels.cuh)
+TASK_HOVER = 0
+TASK_MULTIHOVER = 1
+
+
+class RowConsts(NamedTuple):
+    """What a task's `row_post` needs beside the state rows; the fused
+    kernel receives exactly these numbers in its parameter struct."""
+
+    task_id: int
+    targets: tuple          # per scoring drone (tx, ty, tz), Python floats
+    box_xy: float           # |x|, |y| limit of the flight box
+    box_z: float            # z ceiling
+    tilt: float             # |roll|, |pitch| limit [rad]
+    episode_len_sec: float
+
+
+def _require_kin(task) -> None:
+    if task.obs != ObservationType.KIN:
+        raise NotImplementedError(
+            f"{task.obs}: only KIN observations are ported; RGB is "
+            "ROADMAP.md queue 1 item 12 (ops/render.py)")
+
+
+@dataclasses.dataclass(frozen=True)
+class RLTask:
+    """Base RL task: KIN observations with action history.
+
+    Parity: reference BaseRLAviary (envs/BaseRLAviary.py) — action buffer of
+    ctrl_freq//2 past actions (:66-67), action mappings (:160-239), KIN obs =
+    12-dim kinematics + stacked buffer (:243-322).
+    """
+
+    act: ActionType = ActionType.RPM
+    obs: ObservationType = ObservationType.KIN
+    # uniform reset noise on position [m], attitude [rad], velocity [m/s];
+    # carried for the eligibility checks, non-zero values are not ported yet
+    reset_pos_noise: float = 0.0
+    reset_rpy_noise: float = 0.0
+    reset_vel_noise: float = 0.0
+
+    def action_dim(self, cfg) -> int:
+        if self.act in (ActionType.RPM, ActionType.VEL):
+            return 4
+        if self.act == ActionType.PID:
+            return 3
+        return 1  # ONE_D_RPM, ONE_D_PID
+
+    def action_buffer_shape(self, cfg: AviaryConfig):
+        return (cfg.ctrl_freq // 2, self.action_dim(cfg))
+
+    def obs_dim(self, cfg) -> int:
+        buf, adim = self.action_buffer_shape(cfg)
+        return 12 + buf * adim
+
+    def preprocess_action(self, cfg, state: EnvState, action):
+        # push into the ring (oldest first, like the reference deque);
+        # buffer is (..., N, BUF, A), so the shift runs along axis -2
+        buf = torch.cat(
+            [state.action_buffer[..., 1:, :], action[..., None, :]], dim=-2)
+        state = state._replace(action_buffer=buf)
+        return self._map_to_rpm(cfg, state, action)
+
+    def _map_to_rpm(self, cfg, state: EnvState, action):
+        """Action -> rpm, layout-independent (no buffer push; leaves may be
+        per-env (N, k) or flattened (B*N, k) — see envs/fast.py)."""
+        hover = cfg.drone.hover_rpm
+        if self.act == ActionType.RPM:
+            return hover * (1 + 0.05 * action), state
+        if self.act == ActionType.ONE_D_RPM:
+            rpm = (hover * (1 + 0.05 * action)).repeat_interleave(4, dim=-1)
+            return rpm, state
+        if self.act in (ActionType.PID, ActionType.VEL,
+                        ActionType.ONE_D_PID):
+            raise NotImplementedError(
+                f"{self.act}: the PID-family actions are ROADMAP.md queue 1 "
+                "item 10 (control/dsl_pid.py, kernel K4)")
+        raise ValueError(f"unsupported action type {self.act}")
+
+    def compute_obs(self, cfg, state: EnvState):
+        """KIN: (..., N, 12 + BUF*A) [pos, rpy, vel, ang_v] + action history
+        (reference BaseRLAviary.py:293-322)."""
+        _require_kin(self)
+        rpy = quat_ops.quat_to_rpy(state.quat)
+        obs12 = torch.cat([state.pos, rpy, state.vel, state.ang_v], dim=-1)
+        # (..., N, BUF, A) -> (..., N, BUF*A), oldest first (reference
+        # :317-318); drone-major storage makes this a free reshape
+        hist = state.action_buffer.flatten(-2)
+        return torch.cat([obs12, hist], dim=-1)
+
+    def compute_reward(self, cfg, state):
+        return torch.zeros_like(state.pos[..., 0, 0])
+
+    def compute_terminated(self, cfg, state):
+        return torch.zeros_like(state.pos[..., 0, 0], dtype=torch.bool)
+
+    def compute_truncated(self, cfg, state):
+        return torch.zeros_like(state.pos[..., 0, 0], dtype=torch.bool)
+
+    # ---- flattened fast-path hooks (envs/fast.py) ----
+
+    def flat_post(self, cfg, flat: EnvState, num_envs: int, num_drones: int,
+                  obs12=None):
+        """Post-processing on the FLATTENED (B*N, k) state: (obs (B*N, D),
+        reward (B,), term (B,), trunc (B,)).  `obs12` is the optional
+        kernel-emitted kinematic block (B*N, 12)."""
+        _require_kin(self)
+        b, n = num_envs, num_drones
+        if obs12 is None:
+            rpy = quat_ops.quat_to_rpy(flat.quat)              # (B*N, 3)
+            obs12 = torch.cat([flat.pos, rpy, flat.vel, flat.ang_v], dim=-1)
+        else:
+            rpy = obs12[:, 3:6]  # kernel-emitted Euler block
+        buf, adim = self.action_buffer_shape(cfg)
+        hist = flat.action_buffer.reshape(b * n, buf * adim)
+        obs = torch.cat([obs12, hist], dim=-1)        # (B*N, D)
+        reward, term, trunc = self.flat_reward_done(
+            cfg, flat, rpy, num_envs, num_drones)
+        return obs, reward, term, trunc
+
+    def flat_reward_done(self, cfg, flat: EnvState, rpy, num_envs: int,
+                         num_drones: int):
+        """(reward (B,), terminated (B,), truncated (B,)) on the flat state."""
+        z = torch.zeros((num_envs,), dtype=flat.pos.dtype,
+                        device=flat.pos.device)
+        return z, z.bool(), z.bool()
+
+
+@dataclasses.dataclass(frozen=True)
+class HoverTask(RLTask):
+    """Single-agent hover at TARGET_POS (reference envs/HoverAviary.py).
+
+    reward = max(0, 2 - ||tgt - p||^4) (:68-79); terminated when
+    ||tgt - p|| < 1e-4 (:83-96); truncated outside the flight box, when
+    tilted > 0.4 rad, or after EPISODE_LEN_SEC (:100-117).
+    """
+
+    target_pos: tuple = (0.0, 0.0, 1.0)
+    episode_len_sec: float = 8.0
+
+    def _dist(self, state):
+        tgt = torch.tensor(self.target_pos, dtype=state.pos.dtype,
+                           device=state.pos.device)
+        return torch.linalg.norm(tgt - state.pos[..., 0, :], dim=-1)
+
+    def compute_reward(self, cfg, state):
+        return torch.clamp(2.0 - self._dist(state) ** 4, min=0.0)
+
+    def compute_terminated(self, cfg, state):
+        return self._dist(state) < 1e-4
+
+    def compute_truncated(self, cfg, state):
+        pos = state.pos[..., 0, :]
+        rpy = quat_ops.quat_to_rpy(state.quat[..., 0, :])
+        out = (torch.abs(pos[..., 0]) > 1.5) | (torch.abs(pos[..., 1]) > 1.5) \
+            | (pos[..., 2] > 2.0) | (torch.abs(rpy[..., 0]) > 0.4) \
+            | (torch.abs(rpy[..., 1]) > 0.4)
+        timeout = (state.step_counter / cfg.pyb_freq) > self.episode_len_sec
+        return out | timeout
+
+    def flat_reward_done(self, cfg, flat, rpy, num_envs, num_drones):
+        b, n = num_envs, num_drones
+        # drone 0 per env (reference HoverAviary scores the single drone)
+        pos = flat.pos.reshape(b, n, 3)[:, 0]                  # (B, 3)
+        rpy0 = rpy.reshape(b, n, 3)[:, 0]
+        tgt = torch.tensor(self.target_pos, dtype=pos.dtype,
+                           device=pos.device)
+        d = torch.linalg.norm(tgt - pos, dim=-1)               # (B,)
+        reward = torch.clamp(2.0 - d ** 4, min=0.0)
+        term = d < 1e-4
+        out = (torch.abs(pos[:, 0]) > 1.5) | (torch.abs(pos[:, 1]) > 1.5) \
+            | (pos[:, 2] > 2.0) | (torch.abs(rpy0[:, 0]) > 0.4) \
+            | (torch.abs(rpy0[:, 1]) > 0.4)
+        timeout = (flat.step_counter / cfg.pyb_freq) > self.episode_len_sec
+        return reward, term, out | timeout
+
+    # ---- fused-kernel row hook (ops/kernel_fused.py) ----
+    def row_consts(self, cfg) -> RowConsts:
+        return RowConsts(TASK_HOVER, (tuple(self.target_pos),), 1.5, 2.0,
+                         0.4, self.episode_len_sec)
+
+    def row_post(self, cfg, drones, sc_row):
+        """Reward/term/trunc on (B,) row tensors (drone 0 scores).  Note
+        the squared forms: term is d^2 < 1e-8 here, d < 1e-4 on the flat
+        path; they differ only at ties."""
+        c = self.row_consts(cfg)
+        d0 = drones[0]
+        tx, ty, tz = c.targets[0]
+        px, py, pz = d0["p"]
+        roll, pitch, _ = d0["rpy"]
+        dx, dy, dz = tx - px, ty - py, tz - pz
+        d2 = dx * dx + dy * dy + dz * dz
+        reward = torch.clamp(2.0 - d2 * d2, min=0.0)  # ||d||^4 == (||d||^2)^2
+        term = d2 < 1e-8
+        out = (torch.abs(px) > c.box_xy) | (torch.abs(py) > c.box_xy) \
+            | (pz > c.box_z) | (torch.abs(roll) > c.tilt) \
+            | (torch.abs(pitch) > c.tilt)
+        timeout = (sc_row / cfg.pyb_freq) > c.episode_len_sec
+        return reward, term, out | timeout
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiHoverTask(RLTask):
+    """Multi-agent leader-follower hover (reference envs/MultiHoverAviary.py).
+
+    TARGET_POS = INIT_XYZS + [0, 0, 1/(i+1)] (:71); summed reward (:75-88);
+    terminated when the summed distance < 1e-4 (:92-108); truncated when any
+    drone leaves the +-2 box / tilts > 0.4 / timeout (:112-130).
+    """
+
+    episode_len_sec: float = 8.0
+
+    def _targets(self, cfg, like: torch.Tensor):
+        tgt = cfg.default_init_xyzs(like.dtype, like.device).clone()
+        i = torch.arange(cfg.num_drones, dtype=like.dtype, device=like.device)
+        tgt[:, 2] += 1.0 / (i + 1)
+        return tgt                                             # (N, 3)
+
+    def compute_reward(self, cfg, state):
+        d = torch.linalg.norm(self._targets(cfg, state.pos) - state.pos,
+                              dim=-1)
+        return torch.sum(torch.clamp(2.0 - d ** 4, min=0.0), dim=-1)
+
+    def compute_terminated(self, cfg, state):
+        d = torch.linalg.norm(self._targets(cfg, state.pos) - state.pos,
+                              dim=-1)
+        return torch.sum(d, dim=-1) < 1e-4
+
+    def compute_truncated(self, cfg, state):
+        rpy = quat_ops.quat_to_rpy(state.quat)
+        pos = state.pos
+        out = (torch.abs(pos[..., 0]) > 2.0) | (torch.abs(pos[..., 1]) > 2.0) \
+            | (pos[..., 2] > 2.0) | (torch.abs(rpy[..., 0]) > 0.4) \
+            | (torch.abs(rpy[..., 1]) > 0.4)
+        timeout = (state.step_counter / cfg.pyb_freq) > self.episode_len_sec
+        return torch.any(out, dim=-1) | timeout
+
+    def flat_reward_done(self, cfg, flat, rpy, num_envs, num_drones):
+        b, n = num_envs, num_drones
+        tgt = self._targets(cfg, flat.pos)                     # (N, 3)
+        d = torch.linalg.norm(tgt.repeat(b, 1) - flat.pos, dim=-1)  # (B*N,)
+        out = (torch.abs(flat.pos[:, 0]) > 2.0) \
+            | (torch.abs(flat.pos[:, 1]) > 2.0) | (flat.pos[:, 2] > 2.0) \
+            | (torch.abs(rpy[:, 0]) > 0.4) | (torch.abs(rpy[:, 1]) > 0.4)
+        reward = torch.clamp(2.0 - d ** 4, min=0.0).reshape(b, n).sum(dim=1)
+        term = d.reshape(b, n).sum(dim=1) < 1e-4
+        timeout = (flat.step_counter / cfg.pyb_freq) > self.episode_len_sec
+        trunc = out.reshape(b, n).any(dim=1) | timeout
+        return reward, term, trunc
+
+    # ---- fused-kernel row hook (ops/kernel_fused.py) ----
+    def row_consts(self, cfg) -> RowConsts:
+        # the spawn grid in float32, as the kernel and the flat path see it
+        init = cfg.default_init_xyzs(torch.float32, "cpu").tolist()
+        targets = tuple((x, y, z + 1.0 / (i + 1))
+                        for i, (x, y, z) in enumerate(init))
+        return RowConsts(TASK_MULTIHOVER, targets, 2.0, 2.0, 0.4,
+                         self.episode_len_sec)
+
+    def row_post(self, cfg, drones, sc_row):
+        """Summed reward / summed-distance termination / any-drone
+        truncation as row math (cross-drone reductions are row adds)."""
+        c = self.row_consts(cfg)
+        reward = dist_sum = out_any = None
+        for (tx, ty, tz), di in zip(c.targets, drones):
+            px, py, pz = di["p"]
+            roll, pitch, _ = di["rpy"]
+            dx, dy, dz = tx - px, ty - py, tz - pz
+            d2 = dx * dx + dy * dy + dz * dz
+            r = torch.clamp(2.0 - d2 * d2, min=0.0)
+            dd = torch.sqrt(d2)
+            out = (torch.abs(px) > c.box_xy) | (torch.abs(py) > c.box_xy) \
+                | (pz > c.box_z) | (torch.abs(roll) > c.tilt) \
+                | (torch.abs(pitch) > c.tilt)
+            reward = r if reward is None else reward + r
+            dist_sum = dd if dist_sum is None else dist_sum + dd
+            out_any = out if out_any is None else out_any | out
+        term = dist_sum < 1e-4
+        timeout = (sc_row / cfg.pyb_freq) > c.episode_len_sec
+        return reward, term, out_any | timeout

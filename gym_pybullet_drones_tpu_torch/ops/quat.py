@@ -1,0 +1,100 @@
+"""Batched quaternion / rotation math on torch tensors.
+
+Counterpart of the JAX package's `ops/quat.py` for the functions the DYN
+rollout path needs (the scipy-convention Euler helpers, `quat_mul` and the
+world-frame integrator arrive with the controllers and the PYB physics).
+
+Conventions:
+- Quaternions are `xyzw` (PyBullet's layout), stored in the last axis.
+- "rpy" means roll-pitch-yaw about fixed world axes, i.e. R = Rz(y)Ry(p)Rx(r)
+  — PyBullet's Euler convention.
+
+All functions broadcast over arbitrary leading batch dimensions and keep
+the dtype and device of their input.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
+    """xyzw quaternion -> (..., 3, 3) rotation matrix.
+
+    Matches PyBullet's getMatrixFromQuaternion (which normalizes internally).
+    """
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack(
+        [
+            1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+            2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+            2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+        ],
+        dim=-1,
+    )
+    return m.reshape(m.shape[:-1] + (3, 3))
+
+
+def rpy_to_quat(rpy: torch.Tensor) -> torch.Tensor:
+    """Roll-pitch-yaw (fixed-axis XYZ) -> xyzw quaternion.
+
+    Matches PyBullet's getQuaternionFromEuler.
+    """
+    r, p, y = rpy[..., 0] * 0.5, rpy[..., 1] * 0.5, rpy[..., 2] * 0.5
+    cr, sr = torch.cos(r), torch.sin(r)
+    cp, sp = torch.cos(p), torch.sin(p)
+    cy, sy = torch.cos(y), torch.sin(y)
+    return torch.stack(
+        [
+            sr * cp * cy - cr * sp * sy,
+            cr * sp * cy + sr * cp * sy,
+            cr * cp * sy - sr * sp * cy,
+            cr * cp * cy + sr * sp * sy,
+        ],
+        dim=-1,
+    )
+
+
+def quat_to_rpy(q: torch.Tensor) -> torch.Tensor:
+    """xyzw quaternion -> roll-pitch-yaw (fixed-axis XYZ).
+
+    Matches PyBullet's getEulerFromQuaternion (Bullet btMatrix3x3::getEulerZYX).
+    """
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    sinp = torch.clamp(2 * (w * y - z * x), -1.0, 1.0)
+    roll = torch.atan2(2 * (w * x + y * z), 1 - 2 * (x * x + y * y))
+    pitch = torch.asin(sinp)
+    yaw = torch.atan2(2 * (w * z + x * y), 1 - 2 * (y * y + z * z))
+    return torch.stack([roll, pitch, yaw], dim=-1)
+
+
+def integrate_quat(q: torch.Tensor, omega: torch.Tensor,
+                   dt: float) -> torch.Tensor:
+    """Exact exponential-map quaternion integration with BODY rates.
+
+    Parity target: reference BaseAviary._integrateQ (BaseAviary.py:876-889):
+        q' = (cos(theta) I + (2/||w||) sin(theta) Lambda) q,
+    theta = ||w|| dt / 2, returning q unchanged when ||w|| <= 1e-8
+    (np.isclose's default atol).  The matrix-vector rows are expanded with
+    the reference's multiply/add order so float64 results track it.
+    """
+    wx, wy, wz = omega[..., 0], omega[..., 1], omega[..., 2]
+    omega_norm = torch.sqrt(wx * wx + wy * wy + wz * wz)
+    theta = omega_norm * dt / 2
+    cos_t = torch.cos(theta)
+    # s = (2/||w||) sin(theta) * 0.5  -- the .5 from Lambda's definition
+    safe_norm = torch.where(omega_norm > 0, omega_norm,
+                            torch.ones_like(omega_norm))
+    s = 2.0 / safe_norm * torch.sin(theta) * 0.5
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    nx = cos_t * x + s * (wz * y - wy * z + wx * w)
+    ny = cos_t * y + s * (-wz * x + wx * z + wy * w)
+    nz = cos_t * z + s * (wy * x - wx * y + wz * w)
+    nw = cos_t * w + s * (-wx * x - wy * y - wz * z)
+    new_q = torch.stack([nx, ny, nz, nw], dim=-1)
+    keep = (omega_norm <= 1e-8)[..., None]
+    return torch.where(keep, q, new_q)

@@ -1,0 +1,60 @@
+"""Shared pieces of the tests/test_torch_*.py parity tests: the same
+configuration built for the JAX package and for its PyTorch port, and
+seeded numpy inputs pinned to float32 (conftest turns JAX x64 on, so an
+array left untyped would become float64 on the JAX side)."""
+import numpy as np
+
+from gym_pybullet_drones_tpu import params as JP
+from gym_pybullet_drones_tpu.envs import (
+    AviaryConfig as JConfig, HoverTask as JHover,
+    MultiHoverTask as JMultiHover)
+from gym_pybullet_drones_tpu.utils import enums as JE
+
+from gym_pybullet_drones_tpu_torch import params as TP
+from gym_pybullet_drones_tpu_torch.envs import (
+    AviaryConfig as TConfig, HoverTask as THover,
+    MultiHoverTask as TMultiHover)
+from gym_pybullet_drones_tpu_torch.utils import enums as TE
+
+MODELS = ("cf2x", "cf2p", "racer")
+ATOL, RTOL = 2e-5, 1e-4   # tests/test_fused.py's tolerance
+
+
+def models(name):
+    """(JAX DroneParams, port DroneParams) of one drone model."""
+    return JP.get_params(name), TP.get_params(name)
+
+
+def pair(kind="hover", act="rpm", model="cf2x"):
+    """((jax cfg, jax task), (port cfg, port task)) of the headline
+    configurations: DYN, 240 Hz physics under 30 Hz control."""
+    n = 2 if kind == "multihover" else 1
+    jm, tm = models(model)
+    jcfg = JConfig(drone=jm, num_drones=n, physics=JE.Physics.DYN,
+                   pyb_freq=240, ctrl_freq=30)
+    tcfg = TConfig(drone=tm, num_drones=n, physics=TE.Physics.DYN,
+                   pyb_freq=240, ctrl_freq=30)
+    jtask = (JMultiHover if n == 2 else JHover)(act=JE.ActionType(act))
+    ttask = (TMultiHover if n == 2 else THover)(act=TE.ActionType(act))
+    return (jcfg, jtask), (tcfg, ttask)
+
+
+def rand_dyn(b, seed, dtype=np.float32):
+    """Seeded (pos, quat, vel, rpy_rates, ang_v) arrays of shape (b, k)
+    around a hover, column 0 with zero rates (the keep branch)."""
+    rng = np.random.default_rng(seed)
+    pos = rng.normal(size=(b, 3)) * 0.3 + [0, 0, 1]
+    quat = rng.normal(size=(b, 4)) * 0.1 + [0, 0, 0, 1]
+    quat /= np.linalg.norm(quat, axis=-1, keepdims=True)
+    vel = rng.normal(size=(b, 3)) * 0.3
+    rates = rng.normal(size=(b, 3))
+    rates[0] = 0.0
+    ang_v = rng.normal(size=(b, 3))
+    return tuple(np.asarray(a, dtype) for a in (pos, quat, vel, rates, ang_v))
+
+
+def rand_rpm(hover_rpm, b, seed, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    rpm = hover_rpm * (1 + 0.02 * rng.normal(size=(b, 4)))
+    rpm[0] = hover_rpm
+    return np.asarray(rpm, dtype)

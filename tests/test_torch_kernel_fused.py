@@ -1,0 +1,151 @@
+"""The plain PyTorch version of the `fused_env_step` kernel, through the
+port's `make_fused_rollout`, against the JAX package: once against the
+Pallas kernel in interpret mode, and against the XLA batched path
+(`make_batched_step(use_pallas=False)`) where interpret mode is too slow.
+On the CPU the wrapper runs the plain version; the CUDA kernel is held
+against the same plain version on the card by chip_smoke.py."""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from gym_pybullet_drones_tpu.envs import fast as jfast
+from gym_pybullet_drones_tpu_torch.envs import fast as tfast
+from gym_pybullet_drones_tpu_torch.ops import kernel_fused
+from gym_pybullet_drones_tpu_torch.utils import enums as TE
+
+from tests._torch_helpers import ATOL, RTOL, pair
+
+
+def _compare(j_make, kind, act, b, steps, scale, seed=0):
+    (jcfg, jtask), (tcfg, ttask) = pair(kind, act)
+    n = jcfg.num_drones
+    act_dim = jtask.action_buffer_shape(jcfg)[1]
+    j_reset, j_step = j_make(jcfg, jtask, b)
+    t_reset, t_step = tfast.make_fused_rollout(tcfg, ttask, b,
+                                               obs_layout="flat",
+                                               device="cpu")
+    jc, jobs = j_reset()
+    tc, tobs = t_reset()
+    np.testing.assert_allclose(tobs.numpy(), np.asarray(jobs), atol=ATOL)
+    j_step = jax.jit(j_step)
+    rng = np.random.default_rng(seed)
+    any_done = False
+    for t in range(steps):
+        a = (scale * rng.normal(size=(b, n, act_dim))).astype(np.float32)
+        jc, jo, jr, jte, jtr = j_step(jc, jnp.asarray(a, jnp.float32))
+        tc, to, tr, tte, ttr = t_step(tc, torch.from_numpy(a))
+        np.testing.assert_array_equal(tte.numpy(), np.asarray(jte), f"t={t}")
+        np.testing.assert_array_equal(ttr.numpy(), np.asarray(jtr), f"t={t}")
+        np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=RTOL,
+                                   atol=ATOL, err_msg=f"t={t}")
+        np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=RTOL,
+                                   atol=ATOL, err_msg=f"t={t}")
+        any_done |= bool(np.any(np.asarray(jte | jtr)))
+    return any_done
+
+
+def _j_fused(cfg, task, b):
+    return jfast.make_fused_rollout(cfg, task, b, obs_layout="flat",
+                                    use_pallas=True)
+
+
+def _j_batched(cfg, task, b):
+    return jfast.make_batched_step(cfg, task, b, use_pallas=False,
+                                   obs_layout="flat")
+
+
+def test_fused_hover_matches_pallas_interpret():
+    _compare(_j_fused, "hover", "rpm", b=8, steps=6, scale=0.3)
+
+
+def test_fused_hover_autoreset_matches_xla():
+    """Large random actions tumble drones -> truncations -> resets."""
+    assert _compare(_j_batched, "hover", "rpm", b=8, steps=10, scale=1.0)
+
+
+def test_fused_one_d_rpm_matches_xla():
+    _compare(_j_batched, "hover", "one_d_rpm", b=8, steps=10, scale=0.3)
+
+
+def test_fused_multihover_matches_xla():
+    assert _compare(_j_batched, "multihover", "rpm", b=4, steps=10,
+                    scale=0.8)
+
+
+def test_layout_rows():
+    assert kernel_fused._layout(1, 60) == (80, 81)
+    assert kernel_fused._layout(1, 15, TE.ActionType.ONE_D_RPM) == (35, 36)
+    assert kernel_fused._layout(2, 60) == (80, 161)
+    for kind, act, rc, ro in (("hover", "rpm", 81, 75),
+                              ("hover", "one_d_rpm", 36, 30),
+                              ("multihover", "rpm", 161, 147)):
+        _, (tcfg, ttask) = pair(kind, act)
+        spec = kernel_fused.FusedSpec(
+            tcfg, ttask, ((0.0,) * 16,) * tcfg.num_drones)
+        assert (spec.carry_rows, spec.out_rows) == (rc, ro)
+    with pytest.raises(NotImplementedError):
+        kernel_fused._layout(1, 45, TE.ActionType.PID)
+
+
+@pytest.mark.parametrize("layout", ["flat", "drone", "rows"])
+def test_obs_layouts_agree(layout):
+    _, (tcfg, ttask) = pair("multihover", "rpm")
+    b = 3
+    outs = {}
+    rng = np.random.default_rng(4)
+    a = torch.from_numpy(rng.normal(size=(b, 2, 4)).astype(np.float32))
+    for lay in ("flat", layout):
+        reset, step = tfast.make_fused_rollout(tcfg, ttask, b,
+                                               obs_layout=lay, device="cpu")
+        c, obs0 = reset()
+        outs[lay] = (obs0, step(c, a)[1])
+    for ref, got in zip(outs["flat"], outs[layout]):
+        if layout == "drone":
+            assert got.shape == (b, 2, 72)
+            got = got.reshape(b, 144)
+        elif layout == "rows":
+            assert got.shape == (144, b)
+            got = got.t()
+        assert torch.equal(ref, got)
+
+
+@pytest.mark.parametrize("why", ["noise", "pid", "no_row_post", "layout"])
+def test_fused_rejects_ineligible(why):
+    from gym_pybullet_drones_tpu_torch.envs import HoverTask, RLTask
+    _, (tcfg, _) = pair()
+    kw = {}
+    if why == "noise":
+        task = HoverTask(reset_pos_noise=0.1)
+    elif why == "pid":
+        task = HoverTask(act=TE.ActionType.PID)
+    elif why == "no_row_post":
+        task = RLTask()
+    else:
+        task, kw = HoverTask(), {"obs_layout": "tiles"}
+    with pytest.raises(ValueError):
+        tfast.make_fused_rollout(tcfg, task, 4, device="cpu", **kw)
+
+
+def test_other_physics_not_implemented():
+    import dataclasses
+    _, (tcfg, ttask) = pair()
+    pyb = dataclasses.replace(tcfg, physics=TE.Physics.PYB)
+    for make in (tfast.make_fused_rollout, tfast.make_batched_step):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make(pyb, ttask, 4, device="cpu")
+
+
+def test_wrapper_raises_on_what_the_kernel_does_not_take():
+    _, (tcfg, ttask) = pair()
+    reset, _ = tfast.make_fused_rollout(tcfg, ttask, 4, device="cpu")
+    carry, _ = reset()
+    spec = kernel_fused.FusedSpec(tcfg, ttask, ((0.0,) * 16,))
+    good = torch.zeros((4, 4))
+    for c, a in ((carry.double(), good), (carry[:80].contiguous(), good),
+                 (carry, torch.zeros((4, 5))), (carry, torch.zeros((3, 4))),
+                 (carry, torch.zeros((4, 4)).t()[:, :4].t().t())):
+        with pytest.raises((TypeError, ValueError)):
+            kernel_fused.fused_env_step(spec, c, a)

@@ -1,0 +1,45 @@
+"""Port ops/quat.py against the JAX package's, element by element."""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from gym_pybullet_drones_tpu.ops import quat as jq
+from gym_pybullet_drones_tpu_torch.ops import quat as tq
+
+TOL = {np.float64: 1e-12, np.float32: 1e-6}
+B = 64
+
+
+def _inputs(dtype):
+    rng = np.random.default_rng(3)
+    q = rng.normal(size=(B, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    rpy = rng.uniform(-1.2, 1.2, size=(B, 3))
+    omega = rng.normal(size=(B, 3)) * 3
+    omega[0] = 0.0                      # the keep branch
+    return (np.asarray(q, dtype), np.asarray(rpy, dtype),
+            np.asarray(omega, dtype))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("fn", ["quat_to_mat", "rpy_to_quat", "quat_to_rpy",
+                                "integrate_quat"])
+def test_quat_matches_jax(fn, dtype):
+    q, rpy, omega = _inputs(dtype)
+    args = {"quat_to_mat": (q,), "rpy_to_quat": (rpy,), "quat_to_rpy": (q,),
+            "integrate_quat": (q, omega)}[fn]
+    extra = (1 / 240,) if fn == "integrate_quat" else ()
+    ref = np.asarray(getattr(jq, fn)(*(jnp.asarray(a) for a in args), *extra))
+    out = getattr(tq, fn)(*(torch.from_numpy(a) for a in args), *extra)
+    assert out.numpy().dtype == dtype and ref.dtype == dtype
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=TOL[dtype])
+    if fn == "integrate_quat":
+        np.testing.assert_array_equal(out.numpy()[0], q[0])
+
+
+def test_rpy_round_trip():
+    _, rpy, _ = _inputs(np.float64)
+    back = tq.quat_to_rpy(tq.rpy_to_quat(torch.from_numpy(rpy)))
+    np.testing.assert_allclose(back.numpy(), rpy, atol=1e-12)
