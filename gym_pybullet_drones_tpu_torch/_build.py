@@ -38,6 +38,7 @@ MAX_DRONES = 8  # GPD_MAX_DRONES
 # kernel name -> (source file, C entry point)
 KERNELS = {
     "dyn_ctrl_step": ("dyn_ctrl_step.cu", "gpd_dyn_ctrl_step"),
+    "pid_dyn_ctrl_step": ("pid_dyn_ctrl_step.cu", "gpd_pid_dyn_ctrl_step"),
     "fused_env_step": ("fused_env_step.cu", "gpd_fused_env_step"),
 }
 
@@ -51,24 +52,25 @@ class DroneConsts(ctypes.Structure):
         ("plus_mixer", ctypes.c_int)]
 
 
+class PidConsts(ctypes.Structure):
+    """Mirror of `GpdPid`: the controller's drone model."""
+
+    _fields_ = [("kf4", ctypes.c_float), ("gravity", ctypes.c_float),
+                ("plus_mixer", ctypes.c_int)]
+
+
 class StepParams(ctypes.Structure):
     """Mirror of `GpdStepParams`: every constant of one configuration."""
 
-    _fields_ = [
-        ("drone", DroneConsts),
-        ("n_drones", ctypes.c_int),
-        ("n_substeps", ctypes.c_int),
-        ("act_dim", ctypes.c_int),
-        ("buf_rows", ctypes.c_int),
-        ("act_type", ctypes.c_int),
-        ("task_id", ctypes.c_int),
-        ("dt", ctypes.c_float),
-        ("half_dt", ctypes.c_float),
-        ("pyb_freq", ctypes.c_float),
-        ("episode_len_sec", ctypes.c_float),
-        ("box_xy", ctypes.c_float),
-        ("box_z", ctypes.c_float),
-        ("tilt", ctypes.c_float),
+    _fields_ = [("drone", DroneConsts), ("pid", PidConsts)] + [
+        (name, ctypes.c_int) for name in (
+            "n_drones", "n_substeps", "act_dim", "buf_rows", "act_type",
+            "task_id", "n_extra", "relative_actions", "shaped")] + [
+        (name, ctypes.c_float) for name in (
+            "dt", "half_dt", "ctrl_dt", "pyb_freq", "episode_len_sec",
+            "box_xy", "box_z", "tilt", "speed_limit", "step_size",
+            "action_scale", "arrival_tol", "collision_r2", "progress_gain",
+            "arrival_hold")] + [
         ("init16", (ctypes.c_float * 16) * MAX_DRONES),
         ("target", (ctypes.c_float * 3) * MAX_DRONES),
     ]
@@ -79,6 +81,10 @@ _ARGTYPES = {
     # state, rpm, out, obs12 (may be NULL), B, ld, params, stream
     "gpd_dyn_ctrl_step": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                           ctypes.POINTER(StepParams), _P],
+    # state, pid, targets, out, pid out, rpm out, obs12 (may be NULL), B,
+    # ld, params, stream
+    "gpd_pid_dyn_ctrl_step": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
+                              ctypes.c_int, ctypes.POINTER(StepParams), _P],
     # carry, action rows, carry out, outs, B, ld, params, stream
     "gpd_fused_env_step": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                            ctypes.POINTER(StepParams), _P],

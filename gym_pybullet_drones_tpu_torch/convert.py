@@ -5,14 +5,16 @@ side's `EnvState` leaves and packed fused carry are handed over as numpy
 arrays and become this package's tensors, and back.  Nothing here imports
 the JAX package; the caller does the `np.asarray`.
 
-There are no network weights yet; the PPO port extends this module with
-the MLP's parameters.
+`env_state_from_fused_carry` turns the port's own opaque fused carry into
+the batched path's flat EnvState.  There are no network weights yet; the
+PPO port extends this module with the MLP's parameters.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from gym_pybullet_drones_tpu_torch.control.dsl_pid import PIDState
 from gym_pybullet_drones_tpu_torch.envs.core import EnvState
 from gym_pybullet_drones_tpu_torch.utils.device import resolve_device
 
@@ -22,20 +24,61 @@ LANE = 128  # the JAX package pads the fused carry's env axis to this
 def env_state_from_numpy(leaves: dict, device=None) -> EnvState:
     """JAX `EnvState` leaves {field: array} -> this package's EnvState.
 
-    Shapes are kept (per-env (N, k), batched, or the flat (B*N, k) carry);
-    the JAX-only leaves (`ctrl_state`, `rng`) are ignored.  Float leaves
-    keep their dtype, the step counter becomes int32.
+    Shapes are kept (per-env (N, k), batched, or the flat (B*N, k) carry).
+    `ctrl_state`, the embedded-PID carry, is a {field: array} dict of the
+    JAX `PIDState`'s leaves (or the NamedTuple itself); where it is left
+    out, the controllers start from zero.  The JAX-only `rng` leaf is
+    ignored.  Float leaves keep their dtype, the step counter becomes
+    int32.
     """
     device = resolve_device(device)
-    conv = lambda k: torch.tensor(np.asarray(leaves[k]), device=device)
-    fields = {k: conv(k) for k in EnvState._fields if k != "step_counter"}
-    return EnvState(step_counter=conv("step_counter").to(torch.int32),
-                    **fields)
+    conv = lambda x: torch.tensor(np.asarray(x), device=device)
+    fields = {k: conv(leaves[k]) for k in EnvState._fields
+              if k not in ("step_counter", "ctrl_state")}
+    pid = leaves.get("ctrl_state")
+    if pid is None:
+        ctrl_state = PIDState(*(torch.zeros_like(fields["pos"])
+                                for _ in PIDState._fields))
+    else:
+        pid = pid if isinstance(pid, dict) else pid._asdict()
+        ctrl_state = PIDState(**{k: conv(pid[k]) for k in PIDState._fields})
+    return EnvState(
+        step_counter=conv(leaves["step_counter"]).to(torch.int32),
+        ctrl_state=ctrl_state, **fields)
 
 
 def env_state_to_numpy(state: EnvState) -> dict:
-    """This package's EnvState -> {field: numpy array}."""
-    return {k: v.detach().cpu().numpy() for k, v in state._asdict().items()}
+    """This package's EnvState -> {field: numpy array}, `ctrl_state` as a
+    nested {field: array} dict."""
+    to_np = lambda v: v.detach().cpu().numpy()
+    out = {k: to_np(v) for k, v in state._asdict().items()
+           if k != "ctrl_state"}
+    out["ctrl_state"] = {k: to_np(v)
+                         for k, v in state.ctrl_state._asdict().items()}
+    return out
+
+
+def env_state_from_fused_carry(carry: torch.Tensor, num_drones: int,
+                               act) -> EnvState:
+    """This package's packed fused carry (RC, B) -> the flat (B*N, k)
+    EnvState that `envs.fast.make_batched_step` carries, on the same
+    device: the opaque rollout carry made inspectable, or continued on the
+    batched path.  `act` is the task's ActionType (the PID family
+    carries 9 more rows per drone)."""
+    from gym_pybullet_drones_tpu_torch.ops import kernel_fused
+    per = (carry.shape[0] - 1) // num_drones
+    buf_rows = per - kernel_fused._layout(1, 0, act)[0]
+    lv = kernel_fused.unpack_carry(carry, num_drones, buf_rows, act)
+    pid = lv.get("pid")
+    if pid is None:
+        pid = torch.zeros((lv["pos"].shape[0], 9), dtype=carry.dtype,
+                          device=carry.device)
+    return EnvState(
+        pos=lv["pos"], quat=lv["quat"], vel=lv["vel"],
+        rpy_rates=lv["rpy_rates"], ang_v=lv["ang_v"],
+        last_rpm=lv["last_rpm"], action_buffer=lv["action_buffer"],
+        ctrl_state=PIDState(pid[:, 0:3], pid[:, 3:6], pid[:, 6:9]),
+        step_counter=lv["step_counter"].round().to(torch.int32))
 
 
 def fused_carry_from_numpy(carry: np.ndarray, num_envs: int,

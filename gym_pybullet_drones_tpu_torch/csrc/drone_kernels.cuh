@@ -1,18 +1,21 @@
 // Shared device functions and the parameter struct of the drone kernels.
 //
 // The per-column arithmetic lives here once: the motor mixer, the explicit
-// DYN substeps, the Euler extraction and the Hover / MultiHover task
-// post-processing.  dyn_ctrl_step.cu and fused_env_step.cu are thin
-// __global__ shells around these functions, and the PID and PYB kernels
-// still to come reuse them.  Everything is float32 and written as
-// GPD_HD functions (plain `inline` without nvcc), so the same bodies can
-// be compiled for the host.
+// DYN substeps, the Euler extraction, the cascaded DSL-PID tick with its
+// setpoints, and the Hover / MultiHover / Routing task post-processing.
+// dyn_ctrl_step.cu, pid_dyn_ctrl_step.cu and fused_env_step.cu are thin
+// __global__ shells around these functions, and the PYB kernel still to
+// come reuses them.  Everything is float32 and written as GPD_HD functions
+// (plain `inline` without nvcc), so the same bodies can be compiled for the
+// host.
 //
 // Formulas mirror the plain PyTorch versions in ops/kernel_dyn.py,
-// ops/kernel_math.py and envs/tasks.py line by line; change them together.
+// ops/kernel_pid.py, ops/kernel_math.py, envs/tasks.py and envs/routing.py
+// line by line; change them together.
 #pragma once
 
 #include <math.h>
+#include <stddef.h>
 
 #if defined(__CUDACC__)
 #define GPD_HD __host__ __device__ __forceinline__
@@ -23,9 +26,15 @@
 #define GPD_MAX_DRONES 8
 #define GPD_S 16   // state rows per drone
 #define GPD_LR 4   // last-rpm rows per drone
+#define GPD_PR 9   // embedded-PID carry rows per drone (PID-family actions)
+#define GPD_TR 12  // PID setpoint rows: target pos, rpy, vel, rpy rates
 
-enum { GPD_ACT_RPM = 0, GPD_ACT_ONE_D_RPM = 1 };
-enum { GPD_TASK_HOVER = 0, GPD_TASK_MULTIHOVER = 1 };
+enum {
+    GPD_ACT_RPM = 0, GPD_ACT_ONE_D_RPM = 1,
+    // the PID family: an embedded DSL-PID turns a setpoint into rpm
+    GPD_ACT_PID = 2, GPD_ACT_VEL = 3, GPD_ACT_ONE_D_PID = 4
+};
+enum { GPD_TASK_HOVER = 0, GPD_TASK_MULTIHOVER = 1, GPD_TASK_ROUTING = 2 };
 
 // Constants of one drone model, each rounded once from double.
 struct GpdDrone {
@@ -39,17 +48,39 @@ struct GpdDrone {
     int plus_mixer;   // 1 for the + configuration (CF2P)
 };
 
+// Constants of the CONTROLLER's drone model.  The env paths always pass
+// CF2X here whatever `drone` is (reference BaseRLAviary.py:76).
+struct GpdPid {
+    float kf4;        // 4 * kf
+    float gravity;    // 9.8 * m
+    int plus_mixer;   // 1 for the CF2P PWM mixer
+};
+
 // Everything the TPU kernels folded into their program at trace time.
 // Mirrored field by field by `StepParams` in _build.py.
 struct GpdStepParams {
     GpdDrone drone;
+    GpdPid pid;
     int n_drones, n_substeps, act_dim, buf_rows, act_type, task_id;
+    int n_extra;              // task-specific obs rows per drone (routing: 6)
+    int relative_actions;     // PID action is a displacement, not a goal
+    int shaped;               // routing: progress + hold reward
     float dt, half_dt;        // physics step, and dt/2 rounded from double
+    float ctrl_dt;            // control step
     float pyb_freq, episode_len_sec;
     float box_xy, box_z, tilt;
+    float speed_limit;        // VEL actions [m/s]
+    float step_size, action_scale;            // PID-action waypoints
+    float arrival_tol, collision_r2;          // routing: tolerance, radius^2
+    float progress_gain, arrival_hold;        // routing reward
     float init16[GPD_MAX_DRONES][GPD_S];  // per-drone reset state
-    float target[GPD_MAX_DRONES][3];      // per-drone task target
+    float target[GPD_MAX_DRONES][3];      // per-drone target / destination
 };
+
+// Clip that keeps a NaN a NaN, as the plain versions' clamp does.
+GPD_HD float gpd_clip(float x, float lo, float hi) {
+    return x < lo ? lo : (x > hi ? hi : x);
+}
 
 // a^2 - b^2 as a product: exactly 0 for bitwise-equal a and b whatever the
 // compiler contracts into FMAs, so a symmetric hover stays symmetric.
@@ -156,9 +187,7 @@ GPD_HD void gpd_quat_rpy(float qx, float qy, float qz, float qw, float& roll,
     const float n2 = qx * qx + qy * qy + qz * qz + qw * qw;
     roll = atan2f(2.0f * (qw * qx + qy * qz),
                   n2 - 2.0f * (qx * qx + qy * qy));
-    float sp = 2.0f * (qw * qy - qz * qx) / n2;
-    sp = sp < -1.0f ? -1.0f : (sp > 1.0f ? 1.0f : sp);
-    pitch = asinf(sp);
+    pitch = asinf(gpd_clip(2.0f * (qw * qy - qz * qx) / n2, -1.0f, 1.0f));
     yaw = atan2f(2.0f * (qw * qz + qx * qy),
                  n2 - 2.0f * (qy * qy + qz * qz));
 }
@@ -176,17 +205,188 @@ GPD_HD void gpd_action_to_rpm(const GpdStepParams& p, const float* a,
     }
 }
 
+// Setpoints of the embedded PID from one drone's action rows
+// (RLTask._pid_targets): tgt = [pos3 | rpy3 | vel3 | rpy_rates3].  `s` is
+// the PRE-step state; `a` holds the RAW action (the history ring stores it
+// unscaled).
+GPD_HD void gpd_pid_setpoints(const GpdStepParams& p, const float* s,
+                              const float* a, float* tgt) {
+#pragma unroll
+    for (int k = 0; k < GPD_TR; ++k) tgt[k] = 0.0f;
+    const float px = s[0], py = s[1], pz = s[2];
+    if (p.act_type == GPD_ACT_PID) {
+        // waypoint clamp (core.next_waypoint; reference
+        // BaseAviary._calculateNextStep :1105-1147)
+        float dest[3] = {a[0], a[1], a[2]};
+        if (p.relative_actions) {
+            dest[0] = px + p.action_scale * a[0];
+            dest[1] = py + p.action_scale * a[1];
+            dest[2] = pz + p.action_scale * a[2];
+        }
+        const float dx = dest[0] - px, dy = dest[1] - py, dz = dest[2] - pz;
+        const float dist = sqrtf(dx * dx + dy * dy + dz * dz);
+        const float safe = dist > 0.0f ? dist : 1.0f;
+        const bool within = dist <= p.step_size;
+        tgt[0] = within ? dest[0] : px + dx / safe * p.step_size;
+        tgt[1] = within ? dest[1] : py + dy / safe * p.step_size;
+        tgt[2] = within ? dest[2] : pz + dz / safe * p.step_size;
+    } else if (p.act_type == GPD_ACT_VEL) {
+        // [vx, vy, vz, speed fraction]: hold position and yaw, fly along the
+        // unit direction; a zero vector commands zero velocity
+        const float vx = a[0], vy = a[1], vz = a[2];
+        const float norm = sqrtf(vx * vx + vy * vy + vz * vz);
+        const float inv = norm > 0.0f ? 1.0f / norm : 0.0f;
+        const float mag = p.speed_limit * fabsf(a[3]) * inv;
+        float roll, pitch, yaw;
+        gpd_quat_rpy(s[3], s[4], s[5], s[6], roll, pitch, yaw);
+        tgt[0] = px; tgt[1] = py; tgt[2] = pz;
+        tgt[5] = yaw;
+        tgt[6] = mag * vx; tgt[7] = mag * vy; tgt[8] = mag * vz;
+    } else {  // GPD_ACT_ONE_D_PID: a height offset
+        tgt[0] = px; tgt[1] = py; tgt[2] = pz + 0.1f * a[0];
+    }
+}
+
+// One cascaded DSL-PID tick on one column (reference DSLPIDControl.py:
+// position loop :149-208, attitude loop :212-259; gains :37-60).
+// s = state (pos, quat, vel used), pid = [last_rpy3 | integral_pos_e3 |
+// integral_rpy_e3], tgt = 12 setpoint rows.  Writes the four rpm and the
+// nine new PID rows.
+GPD_HD void gpd_pid_tick(const GpdPid& c, float ctrl_dt, const float* s,
+                         const float* pid, const float* tgt, float* rpm,
+                         float* npid) {
+    const float P_FOR[3] = {0.4f, 0.4f, 1.25f};
+    const float I_FOR[3] = {0.05f, 0.05f, 0.05f};
+    const float D_FOR[3] = {0.2f, 0.2f, 0.5f};
+    const float P_TOR[3] = {70000.0f, 70000.0f, 60000.0f};
+    const float I_TOR[3] = {0.0f, 0.0f, 500.0f};
+    const float D_TOR[3] = {20000.0f, 20000.0f, 12000.0f};
+    const float PWM2RPM_SCALE = 0.2685f, PWM2RPM_CONST = 4070.3f;
+    const float MIN_PWM = 20000.0f, MAX_PWM = 65535.0f;
+    const float MIXER_CF2X[4][3] = {{-0.5f, -0.5f, -1.0f},
+                                    {-0.5f, 0.5f, 1.0f},
+                                    {0.5f, 0.5f, -1.0f},
+                                    {0.5f, -0.5f, 1.0f}};
+    const float MIXER_CF2P[4][3] = {{0.0f, -1.0f, -1.0f},
+                                    {1.0f, 0.0f, 1.0f},
+                                    {0.0f, 1.0f, -1.0f},
+                                    {-1.0f, 0.0f, 1.0f}};
+
+    const float qx = s[3], qy = s[4], qz = s[5], qw = s[6];
+    // current rotation matrix from the (normalization-invariant) quat
+    const float n2 = qx * qx + qy * qy + qz * qz + qw * qw;
+    const float inv_n2 = 1.0f / n2;
+    const float xx = qx * qx * inv_n2, yy = qy * qy * inv_n2,
+                zz = qz * qz * inv_n2;
+    const float xy = qx * qy * inv_n2, xz = qx * qz * inv_n2,
+                yz = qy * qz * inv_n2;
+    const float wxq = qw * qx * inv_n2, wyq = qw * qy * inv_n2,
+                wzq = qw * qz * inv_n2;
+    const float c00 = 1.0f - 2.0f * (yy + zz), c01 = 2.0f * (xy - wzq),
+                c02 = 2.0f * (xz + wyq);
+    const float c10 = 2.0f * (xy + wzq), c11 = 1.0f - 2.0f * (xx + zz),
+                c12 = 2.0f * (yz - wxq);
+    const float c20 = 2.0f * (xz - wyq), c21 = 2.0f * (yz + wxq),
+                c22 = 1.0f - 2.0f * (xx + yy);
+
+    // ---- position loop ----
+    float pe[3], ve[3], ip[3], tt[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+        pe[i] = tgt[i] - s[i];
+        ve[i] = tgt[6 + i] - s[7 + i];
+        ip[i] = gpd_clip(pid[3 + i] + pe[i] * ctrl_dt, -2.0f, 2.0f);
+    }
+    ip[2] = gpd_clip(ip[2], -0.15f, 0.15f);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+        tt[i] = P_FOR[i] * pe[i] + I_FOR[i] * ip[i] + D_FOR[i] * ve[i];
+    tt[2] = tt[2] + c.gravity;
+    const float scalar_thrust =
+        fmaxf(0.0f, tt[0] * c02 + tt[1] * c12 + tt[2] * c22);
+    const float thrust_pwm =
+        (sqrtf(scalar_thrust / c.kf4) - PWM2RPM_CONST) / PWM2RPM_SCALE;
+    const float tt_norm = sqrtf(tt[0] * tt[0] + tt[1] * tt[1] + tt[2] * tt[2]);
+    const float zax[3] = {tt[0] / tt_norm, tt[1] / tt_norm, tt[2] / tt_norm};
+    const float cyaw = cosf(tgt[5]), syaw = sinf(tgt[5]);
+    // y_ax = normalize(z_ax x x_c), x_c = [cos yaw, sin yaw, 0]
+    const float zxc[3] = {-zax[2] * syaw, zax[2] * cyaw,
+                          zax[0] * syaw - zax[1] * cyaw};
+    const float zxc_n =
+        sqrtf(zxc[0] * zxc[0] + zxc[1] * zxc[1] + zxc[2] * zxc[2]);
+    const float yax[3] = {zxc[0] / zxc_n, zxc[1] / zxc_n, zxc[2] / zxc_n};
+    const float xax0 = yax[1] * zax[2] - yax[2] * zax[1];
+    // target rotation columns are (x_ax, y_ax, z_ax); intrinsic-XYZ Euler
+    // (ops/quat.mat_to_euler_xyz): b = asin(m02), a = atan2(-m12, m22),
+    // c = atan2(-m01, m00).  asinf does not clip its argument: after the
+    // normalisation zax[0] can be 1 + 1 ulp.
+    const float ea = atan2f(-zax[1], zax[2]);
+    const float eb = asinf(gpd_clip(zax[0], -1.0f, 1.0f));
+    const float ec = atan2f(-yax[0], xax0);
+
+    // ---- attitude loop ----
+    float cr, cp, cy;
+    gpd_quat_rpy(qx, qy, qz, qw, cr, cp, cy);
+    // R(target_euler) = Rx(ea) @ Ry(eb) @ Rz(ec)
+    const float ca = cosf(ea), sa = sinf(ea);
+    const float cb = cosf(eb), sb = sinf(eb);
+    const float cc = cosf(ec), sc = sinf(ec);
+    const float t00 = cb * cc, t01 = -cb * sc, t02 = sb;
+    const float t10 = ca * sc + sa * sb * cc, t11 = ca * cc - sa * sb * sc,
+                t12 = -sa * cb;
+    const float t20 = sa * sc - ca * sb * cc, t21 = sa * cc + ca * sb * sc,
+                t22 = ca * cb;
+    // rot_matrix_e = Rt^T Rc - Rc^T Rt = E - E^T with E = Rt^T Rc
+    const float e21 = t02 * c01 + t12 * c11 + t22 * c21;
+    const float e12 = t01 * c02 + t11 * c12 + t21 * c22;
+    const float e02 = t00 * c02 + t10 * c12 + t20 * c22;
+    const float e20 = t02 * c00 + t12 * c10 + t22 * c20;
+    const float e10 = t01 * c00 + t11 * c10 + t21 * c20;
+    const float e01 = t00 * c01 + t10 * c11 + t20 * c21;
+    const float rot_e[3] = {e21 - e12, e02 - e20, e10 - e01};
+    const float cur[3] = {cr, cp, cy};
+    float rre[3], ir[3], tq[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+        rre[i] = tgt[9 + i] - (cur[i] - pid[i]) / ctrl_dt;
+        ir[i] = gpd_clip(pid[6 + i] - rot_e[i] * ctrl_dt, -1500.0f, 1500.0f);
+    }
+    ir[0] = gpd_clip(ir[0], -1.0f, 1.0f);
+    ir[1] = gpd_clip(ir[1], -1.0f, 1.0f);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+        tq[i] = gpd_clip(-P_TOR[i] * rot_e[i] + D_TOR[i] * rre[i]
+                             + I_TOR[i] * ir[i],
+                         -3200.0f, 3200.0f);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+        const float m0 = c.plus_mixer ? MIXER_CF2P[m][0] : MIXER_CF2X[m][0];
+        const float m1 = c.plus_mixer ? MIXER_CF2P[m][1] : MIXER_CF2X[m][1];
+        const float m2 = c.plus_mixer ? MIXER_CF2P[m][2] : MIXER_CF2X[m][2];
+        float pwm = thrust_pwm + m0 * tq[0] + m1 * tq[1] + m2 * tq[2];
+        pwm = gpd_clip(pwm, MIN_PWM, MAX_PWM);
+        rpm[m] = PWM2RPM_SCALE * pwm + PWM2RPM_CONST;
+    }
+    npid[0] = cr; npid[1] = cp; npid[2] = cy;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+        npid[3 + i] = ip[i];
+        npid[6 + i] = ir[i];
+    }
+}
+
 // Running sums of a task's row_post over the drones of one env.
 struct GpdPostAcc {
     float reward;    // summed reward
     float dist_sum;  // MultiHover: summed distance to the targets
     float d2;        // Hover: squared distance of drone 0
     bool out_any;    // any scoring drone outside the box or tilted
+    bool all_in;     // Routing: every drone within arrival_tol so far
 };
 
 GPD_HD void gpd_post_init(GpdPostAcc& acc) {
     acc.reward = 0.0f; acc.dist_sum = 0.0f; acc.d2 = 0.0f;
-    acc.out_any = false;
+    acc.out_any = false; acc.all_in = true;
 }
 
 // One drone's share of reward / distance / out-of-bounds against target d.
@@ -224,12 +424,99 @@ GPD_HD void gpd_multihover_row_post(const GpdStepParams& p, int d, float px,
     acc.out_any = acc.out_any | out;
 }
 
+// RoutingTask.row_post, one drone's share (envs/routing.py): progress
+// toward the destination gated off inside arrival_tol plus a hold bonus
+// (shaped), or -distance + 10 on arrival; all-arrived termination; any
+// drone tilted truncates.  `v` is the stepped velocity.
+GPD_HD void gpd_routing_row_post(const GpdStepParams& p, int d, float px,
+                                 float py, float pz, float vx, float vy,
+                                 float vz, float roll, float pitch,
+                                 GpdPostAcc& acc) {
+    const float dx = p.target[d][0] - px, dy = p.target[d][1] - py,
+                dz = p.target[d][2] - pz;
+    const float dist = sqrtf(dx * dx + dy * dy + dz * dz);
+    const bool arrived = dist < p.arrival_tol;
+    const float af = arrived ? 1.0f : 0.0f;
+    float r;
+    if (p.shaped) {
+        const float inv = 1.0f / fmaxf(dist, p.arrival_tol);
+        const float prog = (vx * dx + vy * dy + vz * dz) * inv * p.ctrl_dt;
+        const float hold = expf(-dist / p.arrival_tol);
+        r = p.progress_gain * prog * (1.0f - af) + p.arrival_hold * hold;
+    } else {
+        r = -dist + 10.0f * af;
+    }
+    acc.reward = d == 0 ? r : acc.reward + r;
+    acc.all_in = acc.all_in & arrived;
+    acc.out_any = acc.out_any | (fabsf(roll) > p.tilt)
+                  | (fabsf(pitch) > p.tilt);
+}
+
+// Position of drone j in one env's column `col` of a drone-major row block
+// (row stride `ld`, `per_drone` rows per drone).
+GPD_HD void gpd_col_pos(const float* col, size_t ld, int per_drone, int j,
+                        float* pos) {
+    const float* q = col + (size_t)j * per_drone * ld;
+    pos[0] = q[0]; pos[1] = q[ld]; pos[2] = q[2 * ld];
+}
+
+// RoutingTask.row_post, the separation penalty over the STEPPED positions
+// parked in `col`: 10 per unordered pair closer than the collision radius
+// (twice 5: the tensor code counts both orders).
+GPD_HD void gpd_routing_pairs(const GpdStepParams& p, const float* col,
+                              size_t ld, int per_drone, GpdPostAcc& acc) {
+    for (int i = 0; i < p.n_drones; ++i) {
+        float pi[3];
+        gpd_col_pos(col, ld, per_drone, i, pi);
+        for (int j = i + 1; j < p.n_drones; ++j) {
+            float pj[3];
+            gpd_col_pos(col, ld, per_drone, j, pj);
+            const float dx = pi[0] - pj[0], dy = pi[1] - pj[1],
+                        dz = pi[2] - pj[2];
+            const float d2 = dx * dx + dy * dy + dz * dz;
+            if (d2 < p.collision_r2) acc.reward = acc.reward - 10.0f;
+        }
+    }
+}
+
+// RoutingTask.row_extra_obs of drone i from the SELECTED (post-reset)
+// positions in `col`: goal vector, then the displacement pos_j - pos_i to
+// the nearest neighbour on the squared distance.  Strict < over ascending
+// j: the lowest index wins a tie (the drones spawn on a line at equal
+// spacing).  A lone drone gets zeros.
+GPD_HD void gpd_routing_extra_obs(const GpdStepParams& p, const float* col,
+                                  size_t ld, int per_drone, int i, float* e) {
+    float pi[3];
+    gpd_col_pos(col, ld, per_drone, i, pi);
+    e[0] = p.target[i][0] - pi[0];
+    e[1] = p.target[i][1] - pi[1];
+    e[2] = p.target[i][2] - pi[2];
+    // zeros, written as the plain rows write them (a NaN stays a NaN)
+    e[3] = pi[0] * 0.0f; e[4] = e[3]; e[5] = e[3];
+    float best_d2 = 0.0f;
+    bool have = false;
+    for (int j = 0; j < p.n_drones; ++j) {
+        if (j == i) continue;
+        float pj[3];
+        gpd_col_pos(col, ld, per_drone, j, pj);
+        const float dx = pj[0] - pi[0], dy = pj[1] - pi[1],
+                    dz = pj[2] - pi[2];
+        const float d2 = dx * dx + dy * dy + dz * dz;
+        if (!have || d2 < best_d2) {
+            e[3] = dx; e[4] = dy; e[5] = dz;
+            best_d2 = d2;
+            have = true;
+        }
+    }
+}
+
 // Flags of the env from the accumulated sums and the PRE-increment substep
 // counter.  The timeout is a true division: 1920 / 240 is exactly 8.
 GPD_HD void gpd_post_finish(const GpdStepParams& p, const GpdPostAcc& acc,
                             float sc, bool& term, bool& trunc) {
-    term = p.task_id == GPD_TASK_HOVER ? acc.d2 < 1e-8f
-                                       : acc.dist_sum < 1e-4f;
+    term = p.task_id == GPD_TASK_HOVER        ? acc.d2 < 1e-8f
+           : p.task_id == GPD_TASK_MULTIHOVER ? acc.dist_sum < 1e-4f
+                                              : acc.all_in;
     const bool timeout = (sc / p.pyb_freq) > p.episode_len_sec;
     trunc = acc.out_any | timeout;
 }

@@ -1,21 +1,25 @@
 // fused_env_step: the whole env control step in one launch.
 //
 // Hopper counterpart of the Pallas TPU kernel ops/pallas_fused.py:
-// fused_env_step, for DYN physics with RPM / ONE_D_RPM actions and the
-// Hover / MultiHover tasks.  One thread per env; rows are drone-major and
-// the env index is the contiguous one, so every load and store is
-// coalesced.
+// fused_env_step, for DYN physics with every action type (RPM, ONE_D_RPM
+// and the PID family PID / VEL / ONE_D_PID, whose embedded DSL-PID ticks
+// in-kernel) and the Hover / MultiHover / Routing tasks.  One thread per
+// env; rows are drone-major and the env index is the contiguous one, so
+// every load and store is coalesced.
 //
-//   carry (RC, B): per drone [state16 | last_rpm4 | history buf_rows],
-//                  then the substep-counter row (float)
-//   outs  (RO, B): per drone [obs12 | history buf_rows],
+//   carry (RC, B): per drone [state16 | last_rpm4 | pid9 (PID family only)
+//                  | history buf_rows], then the substep-counter row (float)
+//   outs  (RO, B): per drone [obs12 | history buf_rows | task extras],
 //                  then reward, terminated, truncated rows (floats)
 //
 // Pass 1 steps each drone with its state in registers, parks the stepped
-// state in the thread's own column of the output carry, and accumulates
-// the task's sums.  Once the env's done flag is known, pass 2 re-reads that
-// column, selects the reset state for done envs, and writes the carry and
-// the observation rows from the SELECTED state.  The history ring moves
+// state, the applied rpm and the new PID rows in the thread's own column of
+// the output carry, and accumulates the task's sums.  Cross-drone terms
+// (routing's pairwise separation) re-read the parked positions.  Once the
+// env's done flag is known, pass 2 re-reads that column, selects the reset
+// state for done envs, and writes the carry and the observation rows from
+// the SELECTED state; routing's extra rows (goal vector, nearest neighbour)
+// follow from the selected positions of all drones.  The history ring moves
 // through memory row by row, never through registers.
 #include <cuda_runtime.h>
 
@@ -30,9 +34,11 @@ __global__ void fused_env_step_kernel(const float* __restrict__ carry,
     if (col >= B) return;
 
     const int n = p.n_drones, A = p.act_dim, buf_rows = p.buf_rows;
-    const int per_drone = GPD_S + GPD_LR + buf_rows;
-    const int buf_off = GPD_S + GPD_LR;
-    const int obs_per = 12 + buf_rows;
+    const bool has_pid = p.act_type >= GPD_ACT_PID;
+    const int pid_off = GPD_S + GPD_LR;
+    const int buf_off = pid_off + (has_pid ? GPD_PR : 0);
+    const int per_drone = buf_off + buf_rows;
+    const int obs_per = 12 + buf_rows + p.n_extra;
 #define AT(ptr, row) (ptr)[(size_t)(row) * ld + col]
 
     // ---- pass 1: action -> rpm, physics, task sums ----
@@ -46,7 +52,22 @@ __global__ void fused_env_step_kernel(const float* __restrict__ carry,
         s[13] = s[14] = s[15] = 0.0f;
         float a[4] = {0.0f, 0.0f, 0.0f, 0.0f}, rpm[4];
         for (int k = 0; k < A && k < 4; ++k) a[k] = AT(act, d * A + k);
-        gpd_action_to_rpm(p, a, rpm);
+        if (has_pid) {
+            // embedded DSL-PID tick (always the CF2X controller)
+            float pid[GPD_PR], npid[GPD_PR], tgt[GPD_TR];
+#pragma unroll
+            for (int k = 0; k < GPD_PR; ++k)
+                pid[k] = AT(carry, base + pid_off + k);
+            gpd_pid_setpoints(p, s, a, tgt);
+            gpd_pid_tick(p.pid, p.ctrl_dt, s, pid, tgt, rpm, npid);
+#pragma unroll
+            for (int k = 0; k < GPD_PR; ++k)
+                AT(carry_out, base + pid_off + k) = npid[k];
+        } else {
+            gpd_action_to_rpm(p, a, rpm);
+        }
+#pragma unroll
+        for (int k = 0; k < GPD_LR; ++k) AT(carry_out, base + GPD_S + k) = rpm[k];
 
         float thrust, xt, yt, zt;
         gpd_motor_mix(p.drone, rpm[0], rpm[1], rpm[2], rpm[3], thrust, xt,
@@ -60,9 +81,14 @@ __global__ void fused_env_step_kernel(const float* __restrict__ carry,
         gpd_quat_rpy(s[3], s[4], s[5], s[6], roll, pitch, yaw);
         if (p.task_id == GPD_TASK_HOVER)
             gpd_hover_row_post(p, d, s[0], s[1], s[2], roll, pitch, acc);
-        else
+        else if (p.task_id == GPD_TASK_MULTIHOVER)
             gpd_multihover_row_post(p, d, s[0], s[1], s[2], roll, pitch, acc);
+        else
+            gpd_routing_row_post(p, d, s[0], s[1], s[2], s[7], s[8], s[9],
+                                 roll, pitch, acc);
     }
+    if (p.task_id == GPD_TASK_ROUTING)
+        gpd_routing_pairs(p, carry_out + col, (size_t)ld, per_drone, acc);
 
     // the task sees the PRE-increment substep counter
     const float sc = AT(carry, n * per_drone);
@@ -79,12 +105,17 @@ __global__ void fused_env_step_kernel(const float* __restrict__ carry,
             s[k] = done ? p.init16[d][k] : AT(carry_out, base + k);
             AT(carry_out, base + k) = s[k];
         }
-        float a[4] = {0.0f, 0.0f, 0.0f, 0.0f}, rpm[4];
-        for (int k = 0; k < A && k < 4; ++k) a[k] = AT(act, d * A + k);
-        gpd_action_to_rpm(p, a, rpm);
+        if (done) {
+            // a done env's last rpm and PID rows are zeroed
 #pragma unroll
-        for (int k = 0; k < GPD_LR; ++k)
-            AT(carry_out, base + GPD_S + k) = done ? 0.0f : rpm[k];
+            for (int k = 0; k < GPD_LR; ++k)
+                AT(carry_out, base + GPD_S + k) = 0.0f;
+            if (has_pid) {
+#pragma unroll
+                for (int k = 0; k < GPD_PR; ++k)
+                    AT(carry_out, base + pid_off + k) = 0.0f;
+            }
+        }
 
         // observation rows from the SELECTED (post-reset) state
         float roll, pitch, yaw;
@@ -95,7 +126,7 @@ __global__ void fused_env_step_kernel(const float* __restrict__ carry,
         for (int k = 0; k < 12; ++k) AT(outs, ob + k) = o[k];
 
         // history ring, oldest first: drop the oldest action, append the
-        // new one; a done env's ring is zeroed
+        // new RAW one; a done env's ring is zeroed
         for (int k = 0; k < buf_rows; ++k) {
             float v = 0.0f;
             if (!done)
@@ -103,6 +134,18 @@ __global__ void fused_env_step_kernel(const float* __restrict__ carry,
                                      : AT(act, d * A + (k + A - buf_rows));
             AT(carry_out, base + buf_off + k) = v;
             AT(outs, ob + 12 + k) = v;
+        }
+    }
+    if (p.n_extra > 0) {
+        // routing: goal vector and nearest neighbour from the selected
+        // positions of ALL drones, which pass 2 has just written
+        for (int d = 0; d < n; ++d) {
+            float e[6];
+            gpd_routing_extra_obs(p, carry_out + col, (size_t)ld, per_drone,
+                                  d, e);
+#pragma unroll
+            for (int k = 0; k < 6; ++k)
+                AT(outs, d * obs_per + 12 + buf_rows + k) = e[k];
         }
     }
     AT(carry_out, n * per_drone) = done ? 0.0f : sc + (float)p.n_substeps;

@@ -32,14 +32,15 @@ from gym_pybullet_drones_tpu_torch.utils.device import resolve_device
 from gym_pybullet_drones_tpu_torch.utils.enums import Physics
 from gym_pybullet_drones_tpu_torch.ops import quat as quat_ops
 from gym_pybullet_drones_tpu_torch.ops.dynamics import DynState, dyn_step
+from gym_pybullet_drones_tpu_torch.control import dsl_pid
 
 
 class EnvState(NamedTuple):
     """Full simulation state (N = num_drones; leading batch dims allowed).
 
-    The embedded-PID carry and the reset-noise generator state of the JAX
-    package's EnvState join when the PID-family actions and randomized
-    resets are ported (ROADMAP.md queue 1 item 10).
+    `ctrl_state` is a nested tuple: code that walks the leaves goes through
+    `map_leaves`.  The reset-noise generator state of the JAX package's
+    EnvState joins when randomized resets are ported.
     """
 
     pos: torch.Tensor            # (..., N, 3)
@@ -51,7 +52,18 @@ class EnvState(NamedTuple):
     action_buffer: torch.Tensor  # (..., N, BUF, A) action history, oldest
                                  # first, drone-major (the reference's deque
                                  # is time-major, BaseRLAviary.py:66-67)
+    ctrl_state: dsl_pid.PIDState  # embedded-PID carry, leaves (..., N, 3)
+                                 # (zeros when unused)
     step_counter: torch.Tensor   # (...,) int32, counts PYB substeps
+
+
+def map_leaves(fn, *trees):
+    """Apply `fn` leaf by leaf over NamedTuples of tensors of one structure
+    (EnvState with its nested PIDState) and rebuild the structure."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return fn(*trees)
+    return type(first)(*(map_leaves(fn, *xs) for xs in zip(*trees)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,6 +142,47 @@ def state_vector(state: EnvState) -> torch.Tensor:
         dim=-1)
 
 
+def adjacency_matrix(cfg: AviaryConfig, state: EnvState) -> torch.Tensor:
+    """(..., N, N) 0/1 adjacency by neighbourhood radius.
+
+    Parity: reference BaseAviary._getAdjacencyMatrix (:658-675), vectorized.
+    """
+    diff = state.pos[..., :, None, :] - state.pos[..., None, :, :]
+    dist = torch.linalg.norm(diff, dim=-1)
+    eye = torch.eye(cfg.num_drones, dtype=torch.bool, device=dist.device)
+    return ((dist < cfg.neighbourhood_radius) | eye).to(state.pos.dtype)
+
+
+def normalized_action_to_rpm(cfg: AviaryConfig,
+                             action: torch.Tensor) -> torch.Tensor:
+    """De-normalize [-1, 1] actions to [0, MAX_RPM] rpm.
+
+    Parity: reference BaseAviary._normalizedActionToRPM (:893-911) — the
+    piecewise-linear map -1 -> 0, 0 -> HOVER_RPM, 1 -> MAX_RPM.  (The
+    reference prints a warning on out-of-range input; here inputs are
+    clipped.)
+    """
+    action = torch.clamp(action, -1.0, 1.0)
+    d = cfg.drone
+    return torch.where(action <= 0, (action + 1) * d.hover_rpm,
+                       d.hover_rpm + (d.max_rpm - d.hover_rpm) * action)
+
+
+def next_waypoint(current_position: torch.Tensor, destination: torch.Tensor,
+                  step_size: float = 1.0) -> torch.Tensor:
+    """Routing-fork waypoint stepper: move step_size toward destination.
+
+    Parity: reference BaseAviary._calculateNextStep (:1105-1147) — returns the
+    destination itself once within step_size, else a unit step toward it.
+    Batched over leading dims (the reference is scalar per call).
+    """
+    direction = destination - current_position
+    distance = torch.linalg.norm(direction, dim=-1, keepdim=True)
+    safe = torch.where(distance > 0, distance, 1.0)
+    stepped = current_position + direction / safe * step_size
+    return torch.where(distance <= step_size, destination, stepped)
+
+
 def _apply_physics_substep(cfg: AviaryConfig, state: EnvState,
                            rpm: torch.Tensor) -> EnvState:
     """One physics substep (reference :349-372), general dtype."""
@@ -166,6 +219,7 @@ def reset(cfg: AviaryConfig, task, dtype=torch.float32, device=None):
         ang_v=zeros(n, 3),
         last_rpm=zeros(n, 4),
         action_buffer=zeros(n, buf_size, act_dim),
+        ctrl_state=dsl_pid.init_state((n,), dtype, device),
         step_counter=torch.zeros((), dtype=torch.int32, device=device),
     )
     return state, task.compute_obs(cfg, state), {}
@@ -211,6 +265,5 @@ def step_autoreset(cfg: AviaryConfig, task, state: EnvState,
     def pick(i, nxt):
         d = done.reshape(done.shape + (1,) * (nxt.dim() - done.dim()))
         return torch.where(d, i, nxt)
-    new_state = EnvState(*(pick(i, nxt)
-                           for i, nxt in zip(init_state, next_state)))
+    new_state = map_leaves(pick, init_state, next_state)
     return new_state, pick(init_obs, obs), reward, term, trunc, info

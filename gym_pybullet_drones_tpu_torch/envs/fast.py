@@ -6,10 +6,12 @@ configuration used by benchmarks and large-scale training.  Two entry points:
 - `make_batched_step`: an inspectable `EnvState` carry with the (env,
   drone) axes collapsed, leaves (B*N, k).  The DYN physics of a whole
   control step is ONE kernel launch over the flattened batch
-  (`ops/kernel_dyn.py`); the task logic (action mapping, obs, reward,
-  termination, auto-reset) is tensor code on the same flat leaves via the
-  tasks' `_map_to_rpm` / `flat_post` hooks.  Deterministic tasks auto-reset
-  to a CONSTANT state, tiled once to the batch.
+  (`ops/kernel_dyn.py`; for the PID-family actions the embedded DSL-PID
+  tick and the physics together, `ops/kernel_pid.py`); the task logic
+  (action mapping or PID setpoints, obs, reward, termination, auto-reset)
+  is tensor code on the same flat leaves via the tasks' `_map_to_rpm` /
+  `_pid_targets` / `flat_post` hooks.  Deterministic tasks auto-reset to a
+  CONSTANT state, tiled once to the batch.
 - `make_fused_rollout`: the carry is one opaque (RC, B) row block and the
   whole control step is ONE kernel launch (`ops/kernel_fused.py`).
 
@@ -24,11 +26,13 @@ import numpy as np
 import torch
 
 from gym_pybullet_drones_tpu_torch.envs import core
-from gym_pybullet_drones_tpu_torch.ops import kernel_dyn, kernel_fused
+from gym_pybullet_drones_tpu_torch.ops import (
+    kernel_dyn, kernel_fused, kernel_pid)
 from gym_pybullet_drones_tpu_torch.ops.dynamics import DynState
+from gym_pybullet_drones_tpu_torch.ops.kernel_fused import PID_FAMILY
+from gym_pybullet_drones_tpu_torch.params import CF2X
 from gym_pybullet_drones_tpu_torch.utils.device import resolve_device
-from gym_pybullet_drones_tpu_torch.utils.enums import (
-    ActionType, ObservationType)
+from gym_pybullet_drones_tpu_torch.utils.enums import ObservationType
 
 _NOISE_FIELDS = ("reset_pos_noise", "reset_rpy_noise", "reset_vel_noise")
 
@@ -39,14 +43,10 @@ def _flat_reset(cfg, task, num_envs: int, device):
     constant."""
     s1, obs1, _ = core.reset(cfg, task, device=device)
     tile = lambda x: x.repeat((num_envs,) + (1,) * (x.dim() - 1))
-    state = core.EnvState(
-        pos=tile(s1.pos), quat=tile(s1.quat), vel=tile(s1.vel),
-        rpy_rates=tile(s1.rpy_rates), ang_v=tile(s1.ang_v),
-        last_rpm=tile(s1.last_rpm),
-        action_buffer=tile(s1.action_buffer.flatten(1)),   # (B*N, BUF*A)
-        step_counter=torch.zeros((num_envs,), dtype=torch.int32,
-                                 device=device))
-    return state, obs1.expand((num_envs,) + obs1.shape)
+    s1 = s1._replace(
+        action_buffer=s1.action_buffer.flatten(1),         # (N, BUF*A)
+        step_counter=torch.zeros((1,), dtype=torch.int32, device=device))
+    return core.map_leaves(tile, s1), obs1.expand((num_envs,) + obs1.shape)
 
 
 def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
@@ -58,8 +58,9 @@ def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
     step_fn(state, action (B, N, A)) -> (state, obs, reward, term, trunc)
     with per-env leading axes on the outputs (reward/term/trunc (B,)).
 
-    The state is float32 and every control step goes through the
-    `dyn_ctrl_step` kernel (float64 parity runs use `core.step`).
+    The state is float32 and every control step goes through ONE kernel:
+    `pid_dyn_ctrl_step` for a task with PID-family actions, `dyn_ctrl_step`
+    otherwise (float64 parity runs use `core.step`).
 
     obs_layout: "drone" -> obs (B, N, D) (reference per-drone layout);
     "flat" -> obs (B, N*D).
@@ -75,6 +76,11 @@ def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
     buf_len, act_dim = task.action_buffer_shape(cfg)
     # ask the kernel for the 12-row obs block when the task consumes it
     want_obs12 = getattr(task, "obs", None) == ObservationType.KIN
+    # PID-family actions: the cascaded PID and the substeps are ONE launch.
+    # Embedded controllers are always CF2X (reference BaseRLAviary.py:76),
+    # so this is exact for any dynamics model.
+    fused_pid = (getattr(task, "act", None) in PID_FAMILY
+                 and getattr(task, "_pid_targets", None) is not None)
 
     init_flat, init_obs = _flat_reset(cfg, task, num_envs, device)
     init_obs_flat = init_obs.reshape(bn, -1)               # (B*N, D)
@@ -101,14 +107,31 @@ def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
             rpy_rates=out.rpy_rates, ang_v=out.ang_v,
             last_rpm=flat_rpm), obs12
 
+    def _pid_physics(flat: core.EnvState, a: torch.Tensor):
+        """Setpoints as tensor code, then PID tick + physics in one launch;
+        `last_rpm` is what the kernel's controller commanded."""
+        tp, trpy, tv, trr = task._pid_targets(cfg, flat, a)
+        dyn = DynState(pos=flat.pos, quat=flat.quat, vel=flat.vel,
+                       rpy_rates=flat.rpy_rates, ang_v=flat.ang_v)
+        out, new_pid, rpm, *obs12 = kernel_pid.pid_dyn_ctrl_step(
+            CF2X, cfg.drone, dyn, flat.ctrl_state, cfg.steps_per_ctrl,
+            cfg.pyb_dt, cfg.ctrl_dt, tp, trpy, tv, trr, want_obs12)
+        return flat._replace(
+            pos=out.pos, quat=out.quat, vel=out.vel,
+            rpy_rates=out.rpy_rates, ang_v=out.ang_v,
+            last_rpm=rpm, ctrl_state=new_pid), (obs12[0] if obs12 else None)
+
     def step_fn(flat: core.EnvState, action):
         action = torch.as_tensor(action, dtype=torch.float32, device=device)
         a = action.reshape(bn, act_dim)
         if buf_len > 0:
             flat = flat._replace(action_buffer=torch.cat(
                 [flat.action_buffer[:, act_dim:], a], dim=-1))
-        rpm, flat = task._map_to_rpm(cfg, flat, a)
-        flat, obs12 = _physics(flat, rpm)
+        if fused_pid:
+            flat, obs12 = _pid_physics(flat, a)
+        else:
+            rpm, flat = task._map_to_rpm(cfg, flat, a)
+            flat, obs12 = _physics(flat, rpm)
         # hooks see the PRE-increment counter (reference BaseAviary.py:376-382)
         obs, reward, term, trunc = task.flat_post(cfg, flat, num_envs, n,
                                                   obs12=obs12)
@@ -120,11 +143,12 @@ def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
         done_bn = done.repeat_interleave(n)                    # (B*N,)
 
         def pick(i, nxt):
-            d = done_bn if nxt.shape[0] == bn and nxt.dim() > 1 else done
+            # per-drone leaves (B*N, k) reset by drone row, the counter
+            # (B,) by env
+            d = done_bn if nxt.dim() > 1 else done
             return torch.where(d.reshape((-1,) + (1,) * (nxt.dim() - 1)),
                                i, nxt)
-        flat = core.EnvState(*(pick(i, nxt)
-                               for i, nxt in zip(init_flat, flat)))
+        flat = core.map_leaves(pick, init_flat, flat)
         obs = torch.where(done_bn[:, None], init_obs_flat, obs)
         return flat, _finalize_obs(obs), reward, term, trunc
 
@@ -135,14 +159,14 @@ def fused_spec(cfg: core.AviaryConfig, task) -> kernel_fused.FusedSpec:
     """Check that (cfg, task) is eligible for the fused kernel and return
     its constants, the reset state of one env among them.
 
-    Eligibility (raises ValueError): KIN observations, RPM or ONE_D_RPM
-    actions, deterministic resets, a task implementing `row_post`.
-    Physics modes other than DYN raise NotImplementedError.
+    Eligibility (raises ValueError): KIN observations, any action type
+    (PID-family actions carry the embedded DSL-PID state as 9 extra
+    in-kernel rows per drone), deterministic resets, a task implementing
+    `row_post` (and optionally `row_extra_obs`), at most 8 drones.  Physics
+    modes other than DYN raise NotImplementedError.
     """
     if getattr(task, "obs", None) != ObservationType.KIN:
         raise ValueError("fused rollout requires KIN observations")
-    if task.act not in (ActionType.RPM, ActionType.ONE_D_RPM):
-        raise ValueError(f"fused rollout does not support {task.act} yet")
     if getattr(task, "row_post", None) is None:
         raise ValueError("task has no row_post hook")
     if any(getattr(task, f, 0.0) for f in _NOISE_FIELDS):
@@ -189,6 +213,7 @@ def make_fused_rollout(cfg: core.AviaryConfig, task, num_envs: int,
             "ang_v": tiled[:, 13:16],
             "last_rpm": np.zeros((bn, 4), np.float32),
             "action_buffer": np.zeros((bn, buf_rows), np.float32),
+            "pid": np.zeros((bn, kernel_fused.PR), np.float32),
             "step_counter": np.zeros((num_envs,), np.float32),
         }
         carry = kernel_fused.pack_carry(leaves, n, buf_rows, num_envs,
@@ -205,7 +230,7 @@ def make_fused_rollout(cfg: core.AviaryConfig, task, num_envs: int,
         a_rows = torch.as_tensor(action, dtype=torch.float32, device=device) \
             .reshape(num_envs, n * act_dim).t().contiguous()
         carry, outs = kernel_fused.fused_env_step(spec, carry, a_rows)
-        return (carry,) + kernel_fused.unpack_outs(outs, n, buf_rows,
-                                                   obs_layout)
+        return (carry,) + kernel_fused.unpack_outs(
+            outs, n, buf_rows, obs_layout, spec.n_extra)
 
     return reset_fn, step_fn

@@ -1,6 +1,8 @@
 """Task layer: action preprocessing, observations, rewards, termination.
 
-Counterpart of the JAX package's `envs/tasks.py` for the RL hover tasks:
+Counterpart of the JAX package's `envs/tasks.py`:
+- CtrlTask      <- CtrlAviary      (reference envs/CtrlAviary.py)
+- VelocityTask  <- VelocityAviary  (reference envs/VelocityAviary.py)
 - RLTask        <- BaseRLAviary    (reference envs/BaseRLAviary.py)
 - HoverTask     <- HoverAviary     (reference envs/HoverAviary.py)
 - MultiHoverTask<- MultiHoverAviary(reference envs/MultiHoverAviary.py)
@@ -12,9 +14,14 @@ carry of `envs/fast.py`; `row_post` works on (B,) row tensors and is what
 the fused kernel computes (`csrc/drone_kernels.cuh` holds its CUDA twin,
 selected by `row_consts().task_id`).
 
-RPM and ONE_D_RPM actions and KIN observations are ported.  The PID-family
-actions (ROADMAP.md queue 1 item 10) and RGB observations (item 12) raise
-NotImplementedError.
+The embedded DSL-PID controllers of the reference (one Python object per
+drone, BaseRLAviary.py:73-78) are the PIDState carried in EnvState,
+advanced inside `_map_to_rpm`.  Reference quirk preserved: embedded
+controllers always use CF2X parameters whatever the configured drone model
+(reference BaseRLAviary.py:76, VelocityAviary.py:62).
+
+All five action types and KIN observations are ported.  RGB observations
+(ROADMAP.md queue 1 item 12) raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -23,14 +30,20 @@ from typing import NamedTuple
 
 import torch
 
+from gym_pybullet_drones_tpu_torch.params import CF2X
 from gym_pybullet_drones_tpu_torch.utils.enums import (
     ActionType, ObservationType)
 from gym_pybullet_drones_tpu_torch.ops import quat as quat_ops
-from gym_pybullet_drones_tpu_torch.envs.core import AviaryConfig, EnvState
+from gym_pybullet_drones_tpu_torch.ops.kernel_fused import (
+    PID_FAMILY, pid_setpoint_consts)
+from gym_pybullet_drones_tpu_torch.control import dsl_pid
+from gym_pybullet_drones_tpu_torch.envs.core import (
+    AviaryConfig, EnvState, next_waypoint, state_vector)
 
 # task ids of the fused kernel (GPD_TASK_* in csrc/drone_kernels.cuh)
 TASK_HOVER = 0
 TASK_MULTIHOVER = 1
+TASK_ROUTING = 2
 
 
 class RowConsts(NamedTuple):
@@ -43,6 +56,13 @@ class RowConsts(NamedTuple):
     box_z: float            # z ceiling
     tilt: float             # |roll|, |pitch| limit [rad]
     episode_len_sec: float
+    # routing only (envs/routing.py); `targets` then holds the destinations
+    arrival_tol: float = 0.0
+    collision_radius: float = 0.0
+    shaped: bool = False
+    progress_gain: float = 0.0
+    arrival_hold: float = 0.0
+    n_extra_obs_rows: int = 0
 
 
 def _require_kin(task) -> None:
@@ -53,8 +73,94 @@ def _require_kin(task) -> None:
 
 
 @dataclasses.dataclass(frozen=True)
+class CtrlTask:
+    """Direct-RPM control env (non-RL).
+
+    Action = raw RPMs clipped to [0, MAX_RPM] (reference CtrlAviary.py:121-140);
+    obs = raw 20-dim state per drone (:106-117); dummy reward/term/trunc
+    (:144-200).
+    """
+
+    def action_buffer_shape(self, cfg: AviaryConfig):
+        return (0, 4)
+
+    def action_dim(self, cfg: AviaryConfig) -> int:
+        return 4
+
+    def obs_dim(self, cfg: AviaryConfig) -> int:
+        return 20
+
+    def preprocess_action(self, cfg, state: EnvState, action):
+        return self._map_to_rpm(cfg, state, action)
+
+    def _map_to_rpm(self, cfg, state: EnvState, action):
+        """Action -> rpm mapping, independent of batch layout (leaves may be
+        (N, k) per-env or (B*N, k) flattened — see envs/fast.py)."""
+        return torch.clamp(action, 0.0, cfg.drone.max_rpm), state
+
+    def compute_obs(self, cfg, state: EnvState):
+        return state_vector(state)
+
+    def compute_reward(self, cfg, state):
+        return torch.full_like(state.pos[..., 0, 0], -1.0)
+
+    def compute_terminated(self, cfg, state):
+        return torch.zeros_like(state.pos[..., 0, 0], dtype=torch.bool)
+
+    def compute_truncated(self, cfg, state):
+        return torch.zeros_like(state.pos[..., 0, 0], dtype=torch.bool)
+
+    def flat_post(self, cfg, flat: EnvState, num_envs: int, num_drones: int,
+                  obs12=None):
+        """Post-processing on the FLATTENED (B*N, k) state: (obs (B*N, 20),
+        reward (B,), term (B,), trunc (B,)).  `obs12` is the optional
+        kernel-emitted kinematic block (unused by this 20-dim obs task)."""
+        z = torch.zeros((num_envs,), dtype=flat.pos.dtype,
+                        device=flat.pos.device)
+        return state_vector(flat), z - 1.0, z.bool(), z.bool()
+
+
+def _embedded_pid(cfg, state: EnvState, target_pos, target_rpy=None,
+                  target_vel=None):
+    """Advance the embedded per-drone DSL-PIDs one control tick."""
+    rpm, ctrl_state, _, _ = dsl_pid.compute_control(
+        CF2X, state.ctrl_state, cfg.ctrl_dt,
+        cur_pos=state.pos, cur_quat=state.quat, cur_vel=state.vel,
+        target_pos=target_pos, target_rpy=target_rpy, target_vel=target_vel)
+    return rpm, state._replace(ctrl_state=ctrl_state)
+
+
+def _vel_targets(cfg, state: EnvState, action):
+    """[vx, vy, vz, speed-fraction] -> (target_rpy, target_vel): hold the
+    current yaw, fly along the unit direction (zero for a zero vector)."""
+    v = action[..., 0:3]
+    norm = torch.linalg.norm(v, dim=-1, keepdim=True)
+    v_unit = torch.where(norm > 0, v / torch.where(norm > 0, norm, 1.0), 0.0)
+    yaw = quat_ops.quat_to_rpy(state.quat)[..., 2]
+    zero = torch.zeros_like(yaw)
+    target_rpy = torch.stack([zero, zero, yaw], dim=-1)
+    target_vel = cfg.drone.speed_limit * torch.abs(action[..., 3:4]) * v_unit
+    return target_rpy, target_vel
+
+
+@dataclasses.dataclass(frozen=True)
+class VelocityTask(CtrlTask):
+    """Velocity-command env with embedded DSL-PIDs.
+
+    Action = [vx, vy, vz, speed-fraction] per drone mapped through PID to RPM
+    (reference VelocityAviary.py:129-168); speed limit
+    0.03 * MAX_SPEED_KMH * 1000/3600 (:78).
+    """
+
+    def _map_to_rpm(self, cfg, state: EnvState, action):
+        target_rpy, target_vel = _vel_targets(cfg, state, action)
+        return _embedded_pid(cfg, state, target_pos=state.pos,
+                             target_rpy=target_rpy, target_vel=target_vel)
+
+
+@dataclasses.dataclass(frozen=True)
 class RLTask:
-    """Base RL task: KIN observations with action history.
+    """Base RL task: 5 action types, KIN observations with action history.
 
     Parity: reference BaseRLAviary (envs/BaseRLAviary.py) — action buffer of
     ctrl_freq//2 past actions (:66-67), action mappings (:160-239), KIN obs =
@@ -100,11 +206,29 @@ class RLTask:
         if self.act == ActionType.ONE_D_RPM:
             rpm = (hover * (1 + 0.05 * action)).repeat_interleave(4, dim=-1)
             return rpm, state
-        if self.act in (ActionType.PID, ActionType.VEL,
-                        ActionType.ONE_D_PID):
-            raise NotImplementedError(
-                f"{self.act}: the PID-family actions are ROADMAP.md queue 1 "
-                "item 10 (control/dsl_pid.py, kernel K4)")
+        if self.act in PID_FAMILY:
+            tp, trpy, tv, _ = self._pid_targets(cfg, state, action)
+            return _embedded_pid(cfg, state, target_pos=tp,
+                                 target_rpy=trpy, target_vel=tv)
+        raise ValueError(f"unsupported action type {self.act}")
+
+    def _pid_targets(self, cfg, state: EnvState, action):
+        """Embedded-PID setpoints (target pos/rpy/vel/rpy_rates), each
+        (..., 3), for the PID-family action types.  Layout-independent;
+        also what the `pid_dyn_ctrl_step` kernel is fed (envs/fast.py)."""
+        zeros = torch.zeros_like(state.pos)
+        if self.act == ActionType.PID:
+            c = pid_setpoint_consts(self)
+            dest = state.pos + c.action_scale * action if c.relative \
+                else action
+            return (next_waypoint(state.pos, dest, step_size=c.step_size),
+                    zeros, zeros, zeros)
+        if self.act == ActionType.VEL:
+            target_rpy, target_vel = _vel_targets(cfg, state, action)
+            return state.pos, target_rpy, target_vel, zeros
+        if self.act == ActionType.ONE_D_PID:
+            delta = 0.1 * torch.nn.functional.pad(action, (2, 0))
+            return state.pos + delta, zeros, zeros, zeros
         raise ValueError(f"unsupported action type {self.act}")
 
     def compute_obs(self, cfg, state: EnvState):
@@ -143,10 +267,19 @@ class RLTask:
             rpy = obs12[:, 3:6]  # kernel-emitted Euler block
         buf, adim = self.action_buffer_shape(cfg)
         hist = flat.action_buffer.reshape(b * n, buf * adim)
-        obs = torch.cat([obs12, hist], dim=-1)        # (B*N, D)
+        cols = [obs12, hist]
+        extra = self.flat_extra_obs(cfg, flat, num_envs, num_drones)
+        if extra is not None:
+            cols.append(extra)
+        obs = torch.cat(cols, dim=-1)                 # (B*N, D)
         reward, term, trunc = self.flat_reward_done(
             cfg, flat, rpy, num_envs, num_drones)
         return obs, reward, term, trunc
+
+    def flat_extra_obs(self, cfg, flat: EnvState, num_envs: int,
+                       num_drones: int):
+        """Optional task-specific obs columns appended after the history."""
+        return None
 
     def flat_reward_done(self, cfg, flat: EnvState, rpy, num_envs: int,
                          num_drones: int):

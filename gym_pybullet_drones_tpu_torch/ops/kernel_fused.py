@@ -3,21 +3,25 @@ history ring, physics, task reward/termination, auto-reset and observation
 assembly — with the rollout carry held as ONE packed row block.
 
 Replaces the TPU kernel `gym_pybullet_drones_tpu/ops/pallas_fused.py:
-fused_env_step` (body `_kernel`) for `Physics.DYN` with RPM / ONE_D_RPM
-actions and the Hover / MultiHover tasks.  Source:
-`csrc/fused_env_step.cu`, device functions in `csrc/drone_kernels.cuh`.
-Its PID-family specialisation (9 extra carry rows per drone) and its PYB
-physics specialisation are still to port (ROADMAP.md queue 2, K2 (c), (d)).
+fused_env_step` (body `_kernel`) for `Physics.DYN` with every action type
+(RPM, ONE_D_RPM, and the PID family PID / VEL / ONE_D_PID, whose embedded
+DSL-PID ticks in-kernel and carries 9 extra rows per drone) and the Hover /
+MultiHover / Routing tasks.  Source: `csrc/fused_env_step.cu`, device
+functions in `csrc/drone_kernels.cuh`.  Its PYB physics specialisation is
+still to port (ROADMAP.md queue 2, K2 (d)).
 
     carry (RC, B):  per drone [pos3 quat4 vel3 rpy_rates3 ang_v3]
-                    [last_rpm4] [action-history BUF*A rows]
+                    [last_rpm4] [pid9, PID family only]
+                    [action-history BUF*A rows]
                     then one global step-counter row (f32)
-    outs  (RO, B):  per drone [obs12 + history] rows,
+    outs  (RO, B):  per drone [obs12 + history + task extras] rows,
                     then reward / terminated / truncated rows
 
-Rows are drone-major and the env index is the contiguous one, so
-cross-drone task reductions (summed rewards, any-drone truncation) are
-plain per-thread arithmetic.  Auto-reset is a select against the reset
+The row order equals the JAX package's carry, so a carry goes across
+through `convert.py` as it is.  Rows are drone-major and the env index is
+the contiguous one, so cross-drone task reductions (summed rewards,
+any-drone truncation, routing's pairwise separation and nearest neighbour)
+are plain per-thread arithmetic.  Auto-reset is a select against the reset
 state passed in the parameter struct (deterministic resets only).
 
 What bounds it on an H100: bytes — the carry rows the step needs are read
@@ -30,8 +34,12 @@ thread per env, a drone's 16 state values in registers through all
 substeps, every load and store coalesced.  The action-history ring (60
 rows for RPM at 30 Hz control) moves through memory row by row and never
 through registers.  The drones of an env are stepped one after the other;
-their stepped state waits in the output block (the thread re-reads its own
-column) until the env's done flag is known.  No lane padding, no blocking:
+their stepped state, applied rpm and new PID rows wait in the output block
+(the thread re-reads its own column) until the env's done flag is known;
+routing's pairwise terms re-read the parked positions from there as well.
+For the PID family the per-drone chain grows by the PID tick (about 400
+operations, with divisions, square roots and inverse trig) before the
+substeps.  No lane padding, no blocking:
 the kernel takes B and the row stride and masks its tail.  All constants
 (drone, substeps, dt, action type, task, per-drone reset state and
 targets, box limits, episode length) arrive in one by-value struct, so one
@@ -47,20 +55,28 @@ import ctypes
 import dataclasses
 import functools
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from gym_pybullet_drones_tpu_torch import _build
 from gym_pybullet_drones_tpu_torch.utils.device import resolve_device
 from gym_pybullet_drones_tpu_torch.utils.enums import ActionType, Physics
-from gym_pybullet_drones_tpu_torch.ops import kernel_dyn, kernel_math
+from gym_pybullet_drones_tpu_torch.params import CF2X
+from gym_pybullet_drones_tpu_torch.ops import (
+    kernel_dyn, kernel_math, kernel_pid)
 from gym_pybullet_drones_tpu_torch.ops.kernel_dyn import check_rows
 
 S = 16    # state rows per drone
 LR = 4    # last-rpm rows per drone
+PR = 9    # embedded-PID carry rows per drone (PID-family actions only)
+
+PID_FAMILY = (ActionType.PID, ActionType.VEL, ActionType.ONE_D_PID)
 
 # action-type ids of the kernel (GPD_ACT_* in csrc/drone_kernels.cuh)
-_ACT_IDS = {ActionType.RPM: 0, ActionType.ONE_D_RPM: 1}
+_ACT_IDS = {ActionType.RPM: 0, ActionType.ONE_D_RPM: 1, ActionType.PID: 2,
+            ActionType.VEL: 3, ActionType.ONE_D_PID: 4}
 
 launches = 0  # kernel launches made by `fused_env_step` (CUDA only)
 
@@ -68,11 +84,28 @@ launches = 0  # kernel launches made by `fused_env_step` (CUDA only)
 def _layout(n: int, buf_rows: int, act: ActionType = ActionType.RPM):
     """(rows per drone, carry rows RC) for `n` drones."""
     if act not in _ACT_IDS:
-        raise NotImplementedError(
-            f"{act}: the PID-family carry rows are ROADMAP.md queue 2, "
-            "K2 (c)")
-    per_drone = S + LR + buf_rows
+        raise ValueError(f"unsupported action type {act}")
+    per_drone = S + LR + (PR if act in PID_FAMILY else 0) + buf_rows
     return per_drone, n * per_drone + 1          # + step-counter row
+
+
+class PidSetpointConsts(NamedTuple):
+    """How a PID-type action becomes a position setpoint; shared by
+    `RLTask._pid_targets`, `pid_setpoint_rows` and the kernel's parameter
+    struct."""
+
+    step_size: float        # waypoint clamp (reference BaseRLAviary: 1.0)
+    relative: bool          # action is a displacement, not a destination
+    action_scale: float     # displacement per unit action when relative
+
+
+def pid_setpoint_consts(task) -> PidSetpointConsts:
+    """RoutingTask overrides these through its fields; the reference's RL
+    aviaries use an absolute destination and a unit step."""
+    step = float(getattr(task, "step_size", 1.0))
+    return PidSetpointConsts(
+        step, bool(getattr(task, "relative_actions", False)),
+        float(getattr(task, "action_scale", step)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,8 +149,15 @@ class FusedSpec:
         return _layout(self.n, self.buf_rows, self.task.act)[1]
 
     @property
+    def n_extra(self) -> int:
+        """Task-specific obs rows per drone (`row_extra_obs`)."""
+        if getattr(self.task, "row_extra_obs", None) is None:
+            return 0
+        return self.task.n_extra_obs_rows
+
+    @property
     def obs_rows_per(self) -> int:
-        return 12 + self.buf_rows
+        return 12 + self.buf_rows + self.n_extra
 
     @property
     def out_rows(self) -> int:
@@ -131,10 +171,20 @@ def _step_params(spec: FusedSpec) -> _build.StepParams:
     sp = _build.StepParams()
     kernel_dyn.fill_drone_params(sp, cfg.drone, cfg.steps_per_ctrl,
                                  cfg.pyb_dt)
+    # the embedded controller is always CF2X (reference BaseRLAviary.py:76)
+    kernel_pid.fill_pid_params(sp, CF2X, cfg.ctrl_dt)
     sp.n_drones, sp.act_dim, sp.buf_rows = spec.n, spec.act_dim, spec.buf_rows
     sp.act_type, sp.task_id = _ACT_IDS[task.act], rc.task_id
+    sp.n_extra = spec.n_extra
     sp.pyb_freq, sp.episode_len_sec = cfg.pyb_freq, rc.episode_len_sec
     sp.box_xy, sp.box_z, sp.tilt = rc.box_xy, rc.box_z, rc.tilt
+    pc = pid_setpoint_consts(task)
+    sp.speed_limit = cfg.drone.speed_limit
+    sp.step_size, sp.action_scale = pc.step_size, pc.action_scale
+    sp.relative_actions = int(pc.relative)
+    sp.shaped, sp.arrival_tol = int(rc.shaped), rc.arrival_tol
+    sp.collision_r2 = rc.collision_radius * rc.collision_radius
+    sp.progress_gain, sp.arrival_hold = rc.progress_gain, rc.arrival_hold
     for d in range(spec.n):
         for k in range(S):
             sp.init16[d][k] = spec.init16[d][k]
@@ -142,6 +192,38 @@ def _step_params(spec: FusedSpec) -> _build.StepParams:
         for k in range(3):
             sp.target[d][k] = tgt[k]
     return sp
+
+
+def pid_setpoint_rows(cfg, task, st, a):
+    """The embedded PID's 12 setpoint rows (target pos, rpy, vel, rpy
+    rates) from one drone's PRE-step state rows and RAW action rows, per
+    `RLTask._pid_targets`; mirrors `gpd_pid_setpoints`."""
+    p, q = st[0:3], st[3:7]
+    zero = p[0] * 0.0
+    if task.act == ActionType.PID:
+        # waypoint clamp (core.next_waypoint; reference
+        # BaseAviary._calculateNextStep :1105-1147)
+        c = pid_setpoint_consts(task)
+        dest = [p[k] + c.action_scale * a[k] for k in range(3)] \
+            if c.relative else list(a[0:3])
+        dx = [dest[k] - p[k] for k in range(3)]
+        dist = torch.sqrt(dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2])
+        safe = torch.where(dist > 0.0, dist, 1.0)
+        tp = [torch.where(dist <= c.step_size, dest[k],
+                          p[k] + dx[k] / safe * c.step_size)
+              for k in range(3)]
+        return tp + [zero] * 9
+    if task.act == ActionType.VEL:
+        vx, vy, vz, sf = a
+        norm = torch.sqrt(vx * vx + vy * vy + vz * vz)
+        inv = torch.where(norm > 0.0,
+                          1.0 / torch.where(norm > 0.0, norm, 1.0), 0.0)
+        mag = cfg.drone.speed_limit * torch.abs(sf) * inv
+        _, _, yaw = kernel_math.quat_rpy_rows(*q)
+        return (list(p) + [zero, zero, yaw]
+                + [mag * vx, mag * vy, mag * vz] + [zero] * 3)
+    # ONE_D_PID: a height offset
+    return [p[0], p[1], p[2] + 0.1 * a[0]] + [zero] * 9
 
 
 def fused_env_step_plain(spec: FusedSpec, carry: torch.Tensor,
@@ -153,18 +235,28 @@ def fused_env_step_plain(spec: FusedSpec, carry: torch.Tensor,
         spec.buf_rows
     per_drone, _ = _layout(n, buf_rows, act)
     hover = params.hover_rpm
-    buf_off = S + LR
+    has_pid = act in PID_FAMILY
+    pid_off = S + LR
+    buf_off = pid_off + (PR if has_pid else 0)
 
     # ---- action mapping + buffer shift + physics ----
-    stepped, new_bufs, rpms = [], [], []
+    stepped, new_bufs, new_pids, rpms = [], [], [], []
     for d in range(n):
         base = d * per_drone
         st = [carry[base + k] for k in range(13)]
         a = action_rows[d * act_dim:(d + 1) * act_dim]
         if act == ActionType.RPM:
             rpm = [hover * (1.0 + 0.05 * a[k]) for k in range(4)]
-        else:  # ONE_D_RPM: one action over the four motors
+        elif act == ActionType.ONE_D_RPM:  # one action over the four motors
             rpm = [hover * (1.0 + 0.05 * a[0])] * 4
+        else:
+            # embedded DSL-PID tick, always the CF2X controller; the ring
+            # below stores the RAW action
+            rpm, new_pid = kernel_pid.pid_tick_rows(
+                CF2X, cfg.ctrl_dt, st,
+                tuple(carry[base + pid_off:base + pid_off + PR]),
+                pid_setpoint_rows(cfg, task, st, a))
+            new_pids.append(new_pid)
         rpms.append(rpm)
         # history ring: oldest first (reference BaseRLAviary.py:66-67)
         buf = carry[base + buf_off:base + buf_off + buf_rows]
@@ -191,6 +283,7 @@ def fused_env_step_plain(spec: FusedSpec, carry: torch.Tensor,
     outs = torch.empty((spec.out_rows, carry.shape[1]), dtype=carry.dtype,
                        device=carry.device)
     obs_rows_per = spec.obs_rows_per
+    sel_dinfo = []
     for d in range(n):
         base, ob = d * per_drone, d * obs_rows_per
         for k in range(S):
@@ -198,6 +291,10 @@ def fused_env_step_plain(spec: FusedSpec, carry: torch.Tensor,
                                               stepped[d][k])
         for k in range(LR):
             carry_out[base + S + k] = torch.where(done, 0.0, rpms[d][k])
+        if has_pid:
+            for k in range(PR):
+                carry_out[base + pid_off + k] = torch.where(
+                    done, 0.0, new_pids[d][k])
         if buf_rows:
             carry_out[base + buf_off:base + buf_off + buf_rows] = \
                 torch.where(done, 0.0, new_bufs[d])
@@ -210,6 +307,15 @@ def fused_env_step_plain(spec: FusedSpec, carry: torch.Tensor,
         outs[ob + 9:ob + 12] = sel[13:16]
         outs[ob + 12:ob + 12 + buf_rows] = \
             carry_out[base + buf_off:base + buf_off + buf_rows]
+        sel_dinfo.append({"p": list(sel[0:3]), "rpy": (roll, pitch, yaw),
+                          "v": list(sel[7:10]), "w": list(sel[13:16])})
+    if spec.n_extra:
+        # task extras (routing: goal vector, nearest neighbour) see the
+        # selected positions of ALL drones
+        for d, rows in enumerate(task.row_extra_obs(cfg, sel_dinfo)):
+            ob = d * obs_rows_per + 12 + buf_rows
+            for k, row in enumerate(rows):
+                outs[ob + k] = row
     carry_out[n * per_drone] = torch.where(done, 0.0, sc_new)
     ro = n * obs_rows_per
     outs[ro] = reward
@@ -258,7 +364,9 @@ def pack_carry(state_leaves: dict, n: int, buf_rows: int, b: int,
     lane padding)."""
     device = resolve_device(device)
     per_drone, rc = _layout(n, buf_rows, act)
-    buf_off = S + LR
+    # (B*N, 9) [last_rpy | integral_pos_e | integral_rpy_e], zeros if absent
+    pid = state_leaves.get("pid") if act in PID_FAMILY else None
+    buf_off = S + LR + (PR if act in PID_FAMILY else 0)
     blk = np.zeros((rc, b), np.float32)
     flat16 = np.concatenate(
         [state_leaves["pos"], state_leaves["quat"], state_leaves["vel"],
@@ -267,6 +375,8 @@ def pack_carry(state_leaves: dict, n: int, buf_rows: int, b: int,
         base = d * per_drone
         blk[base:base + S] = flat16[d::n].T            # (16, B)
         blk[base + S:base + S + LR] = state_leaves["last_rpm"][d::n].T
+        if pid is not None:
+            blk[base + S + LR:base + S + LR + PR] = pid[d::n].T
         if buf_rows:
             blk[base + buf_off:base + buf_off + buf_rows] = \
                 state_leaves["action_buffer"][d::n].reshape(b, buf_rows).T
@@ -274,15 +384,39 @@ def pack_carry(state_leaves: dict, n: int, buf_rows: int, b: int,
     return torch.from_numpy(blk).to(device)
 
 
+def unpack_carry(carry: torch.Tensor, n: int, buf_rows: int,
+                 act: ActionType = ActionType.RPM) -> dict:
+    """(RC, B) drone-major row block -> flattened env-major leaves
+    {name: (B*N, k) tensor}, the inverse of `pack_carry` on the carry's own
+    device: pos, quat, vel, rpy_rates, ang_v, last_rpm, pid (PID family
+    only), action_buffer (B*N, BUF*A) and step_counter (B,) float."""
+    per_drone, rc = _layout(n, buf_rows, act)
+    check_rows("carry", carry, rc)
+    b = carry.shape[1]
+    flat = carry[:n * per_drone].reshape(n, per_drone, b).permute(2, 0, 1) \
+        .reshape(b * n, per_drone)
+    cuts = [("pos", 3), ("quat", 4), ("vel", 3), ("rpy_rates", 3),
+            ("ang_v", 3), ("last_rpm", LR)]
+    if act in PID_FAMILY:
+        cuts.append(("pid", PR))
+    cuts.append(("action_buffer", buf_rows))
+    leaves, col = {}, 0
+    for name, width in cuts:
+        leaves[name] = flat[:, col:col + width]
+        col += width
+    leaves["step_counter"] = carry[n * per_drone]
+    return leaves
+
+
 def unpack_outs(outs: torch.Tensor, n: int, buf_rows: int,
-                obs_layout: str = "flat"):
+                obs_layout: str = "flat", n_extra: int = 0):
     """(RO, B) outputs -> (obs, reward (B,), term (B,) bool, trunc).
 
     obs_layout "rows" returns the (N*D, B) row block as it is; "flat" and
     "drone" return transposed VIEWS of it, (B, N*D) and (B, N, D): no copy
     is made per step.
     """
-    obs_rows_per = 12 + buf_rows
+    obs_rows_per = 12 + buf_rows + n_extra
     ro = n * obs_rows_per
     obs = outs[:ro]                                    # (N*D, B)
     if obs_layout != "rows":

@@ -12,6 +12,20 @@ One difference from the polynomial is known and accepted: for a signed
 zero, `atan2(-0, x < 0)` is -pi here and +pi there (the polynomial treats
 -0 as non-negative).  It needs an exactly inverted drone with an exactly
 zero cross term.
+
+The DSL-PID tick (`ops/kernel_pid.pid_tick_rows`, `gpd_pid_tick`) takes the
+target attitude's Euler angles the same way, `atan2(-z_ax[1], z_ax[2])` and
+`atan2(-y_ax[0], x_ax[0])`, and there a first argument of -0.0 is the
+normal case: a level thrust vector has z_ax[1] = +0 and a zero yaw target
+has y_ax[0] = +0, both negated.  The second arguments are positive then
+(thrust points up, the target x axis points along +x), and for a positive
+second argument both conventions return the signed zero itself, which the
+sin/cos that follow do not tell apart.  They would differ only for a
+thrust vector pointing down (z_ax[2] < 0) with exactly no y component, or
+a yaw target beyond 90 degrees that makes y_ax[0] exactly zero, i.e. a yaw
+target of exactly pi.  Its `asin(z_ax[0])` is clipped to [-1, 1] first:
+`torch.asin` and `asinf` return NaN for 1 + 1 ulp, which the normalisation
+can leave, where the polynomial clipped its own argument.
 """
 from __future__ import annotations
 

@@ -1,13 +1,15 @@
 """Batched quaternion / rotation math on torch tensors.
 
 Counterpart of the JAX package's `ops/quat.py` for the functions the DYN
-rollout path needs (the scipy-convention Euler helpers, `quat_mul` and the
-world-frame integrator arrive with the controllers and the PYB physics).
+rollout path and the DSL-PID controller need (`quat_mul`, `rotate_vector`
+and the world-frame integrator arrive with the PYB physics).
 
 Conventions:
 - Quaternions are `xyzw` (PyBullet's layout), stored in the last axis.
 - "rpy" means roll-pitch-yaw about fixed world axes, i.e. R = Rz(y)Ry(p)Rx(r)
   — PyBullet's Euler convention.
+- "euler_xyz" means intrinsic XYZ Euler angles (scipy's 'XYZ'), which the
+  DSL-PID controller uses.
 
 All functions broadcast over arbitrary leading batch dimensions and keep
 the dtype and device of their input.
@@ -70,6 +72,37 @@ def quat_to_rpy(q: torch.Tensor) -> torch.Tensor:
     pitch = torch.asin(sinp)
     yaw = torch.atan2(2 * (w * z + x * y), 1 - 2 * (y * y + z * z))
     return torch.stack([roll, pitch, yaw], dim=-1)
+
+
+def mat_to_euler_xyz(m: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotation matrix -> intrinsic-XYZ Euler angles (a, b, c).
+
+    Matches scipy Rotation.from_matrix(m).as_euler('XYZ') away from gimbal
+    lock: R = Rx(a) @ Ry(b) @ Rz(c), so b = asin(R[0,2]),
+    a = atan2(-R[1,2], R[2,2]), c = atan2(-R[0,1], R[0,0]).
+    """
+    b = torch.asin(torch.clamp(m[..., 0, 2], -1.0, 1.0))
+    a = torch.atan2(-m[..., 1, 2], m[..., 2, 2])
+    c = torch.atan2(-m[..., 0, 1], m[..., 0, 0])
+    return torch.stack([a, b, c], dim=-1)
+
+
+def euler_xyz_to_quat(e: torch.Tensor) -> torch.Tensor:
+    """Intrinsic-XYZ Euler angles -> xyzw quaternion.
+
+    Matches scipy Rotation.from_euler('XYZ', e).as_quat():
+    q = qx(a) * qy(b) * qz(c) with Hamilton product.
+    """
+    a, b, c = e[..., 0] * 0.5, e[..., 1] * 0.5, e[..., 2] * 0.5
+    ca, sa = torch.cos(a), torch.sin(a)
+    cb, sb = torch.cos(b), torch.sin(b)
+    cc, sc = torch.cos(c), torch.sin(c)
+    # Hamilton product qx * qy * qz expanded:
+    w = ca * cb * cc - sa * sb * sc
+    x = sa * cb * cc + ca * sb * sc
+    y = ca * sb * cc - sa * cb * sc
+    z = ca * cb * sc + sa * sb * cc
+    return torch.stack([x, y, z, w], dim=-1)
 
 
 def integrate_quat(q: torch.Tensor, omega: torch.Tensor,

@@ -7,17 +7,23 @@ import numpy as np
 from gym_pybullet_drones_tpu import params as JP
 from gym_pybullet_drones_tpu.envs import (
     AviaryConfig as JConfig, HoverTask as JHover,
-    MultiHoverTask as JMultiHover)
+    MultiHoverTask as JMultiHover, make_routing_config as j_routing_config)
 from gym_pybullet_drones_tpu.utils import enums as JE
 
 from gym_pybullet_drones_tpu_torch import params as TP
 from gym_pybullet_drones_tpu_torch.envs import (
     AviaryConfig as TConfig, HoverTask as THover,
-    MultiHoverTask as TMultiHover)
+    MultiHoverTask as TMultiHover, make_routing_config as t_routing_config)
 from gym_pybullet_drones_tpu_torch.utils import enums as TE
 
 MODELS = ("cf2x", "cf2p", "racer")
 ATOL, RTOL = 2e-5, 1e-4   # tests/test_fused.py's tolerance
+# the embedded-PID paths: tests/test_fused.py:83-102 (atol 5e-5 on obs and
+# reward) and tests/test_pallas.py:154-164 (rpm, state, PID rows)
+PID_ATOL = 5e-5
+RPM_TOL = dict(rtol=2e-5, atol=0.5)
+PID_STATE_TOL = dict(rtol=3e-4, atol=3e-5)
+PID_ROWS_TOL = dict(rtol=3e-4, atol=2e-5)
 
 
 def models(name):
@@ -37,6 +43,36 @@ def pair(kind="hover", act="rpm", model="cf2x"):
     jtask = (JMultiHover if n == 2 else JHover)(act=JE.ActionType(act))
     ttask = (TMultiHover if n == 2 else THover)(act=TE.ActionType(act))
     return (jcfg, jtask), (tcfg, ttask)
+
+
+def routing_pair(n=3, spacing=0.5, **task_kw):
+    """((jax cfg, jax task), (port cfg, port task)) of the routing fleet on
+    DYN physics; `task_kw` replaces fields of both RoutingTasks."""
+    import dataclasses
+    jcfg, jtask = j_routing_config(n, spacing, physics=JE.Physics.DYN)
+    tcfg, ttask = t_routing_config(n, spacing, physics=TE.Physics.DYN)
+    return ((jcfg, dataclasses.replace(jtask, **task_kw)),
+            (tcfg, dataclasses.replace(ttask, **task_kw)))
+
+
+def rand_pid(b, seed, dtype=np.float32):
+    """Seeded (last_rpy, integral_pos_e, integral_rpy_e) arrays (b, 3), at
+    the sizes of tests/test_pallas.py's PID case."""
+    rng = np.random.default_rng(seed)
+    return tuple(np.asarray(rng.normal(size=(b, 3)) * s, dtype)
+                 for s in (0.05, 0.01, 0.1))
+
+
+def rand_targets(b, seed, dtype=np.float32):
+    """Seeded (target_pos, target_rpy (yaw only), target_vel,
+    target_rpy_rates) arrays (b, 3)."""
+    rng = np.random.default_rng(seed)
+    tp = rng.normal(size=(b, 3)) * 0.5 + [0, 0, 1]
+    trpy = np.concatenate([np.zeros((b, 2)), rng.normal(size=(b, 1)) * 0.5],
+                          axis=-1)
+    tv = rng.normal(size=(b, 3)) * 0.2
+    return tuple(np.asarray(a, dtype) for a in (tp, trpy, tv,
+                                                np.zeros((b, 3))))
 
 
 def rand_dyn(b, seed, dtype=np.float32):

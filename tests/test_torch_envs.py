@@ -11,19 +11,27 @@ import jax.numpy as jnp
 from gym_pybullet_drones_tpu.envs import core as jcore
 from gym_pybullet_drones_tpu_torch.envs import core as tcore
 
-from tests._torch_helpers import ATOL, RTOL, pair
+from tests._torch_helpers import ATOL, PID_ATOL, RTOL, pair, routing_pair
 
 
-def _close(got, ref, msg=""):
+def _close(got, ref, msg="", atol=ATOL):
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=RTOL,
-                               atol=ATOL, err_msg=msg)
+                               atol=atol, err_msg=msg)
 
 
 @pytest.mark.parametrize("kind,act", [("hover", "rpm"),
                                       ("hover", "one_d_rpm"),
-                                      ("multihover", "rpm")])
+                                      ("multihover", "rpm"),
+                                      ("hover", "pid"), ("hover", "vel"),
+                                      ("hover", "one_d_pid"),
+                                      ("routing", "pid")])
 def test_reset_and_step_match_jax(kind, act):
-    (jcfg, jtask), (tcfg, ttask) = pair(kind, act)
+    """The embedded-PID action types and the routing fleet go through
+    `dsl_pid.compute_control` here; their tolerance is the JAX package's
+    own for these paths (tests/test_fused.py:83-102, 5e-5 absolute)."""
+    (jcfg, jtask), (tcfg, ttask) = routing_pair(3) if kind == "routing" \
+        else pair(kind, act)
+    atol = PID_ATOL if act in ("pid", "vel", "one_d_pid") else ATOL
     n = jcfg.num_drones
     act_dim = jtask.action_dim(jcfg)
     js, jobs, _ = jcore.reset(jcfg, jtask)
@@ -31,6 +39,8 @@ def test_reset_and_step_match_jax(kind, act):
     assert tobs.shape == (n, ttask.obs_dim(tcfg))
     _close(tobs, jobs)
     _close(tcore.state_vector(ts), jcore.state_vector(js))
+    assert all(leaf.shape == (n, 3) and not leaf.any()
+               for leaf in ts.ctrl_state)
     j_step = jax.jit(lambda s, a: jcore.step(jcfg, jtask, s, a))
     rng = np.random.default_rng(2)
     for t in range(5):
@@ -38,11 +48,45 @@ def test_reset_and_step_match_jax(kind, act):
         js, jo, jr, jte, jtr, _ = j_step(js, jnp.asarray(a, jnp.float32))
         ts, to, tr, tte, ttr, _ = tcore.step(tcfg, ttask, ts,
                                              torch.from_numpy(a))
-        _close(to, jo, f"obs t={t}")
-        _close(tr, jr, f"reward t={t}")
+        _close(to, jo, f"obs t={t}", atol)
+        _close(tr, jr, f"reward t={t}", atol)
         assert bool(tte) == bool(jte) and bool(ttr) == bool(jtr)
     assert int(ts.step_counter) == int(js.step_counter) == 40
     _close(ts.action_buffer, js.action_buffer)
+
+
+@pytest.mark.parametrize("name", ["CtrlTask", "VelocityTask"])
+def test_ctrl_and_velocity_tasks_match_jax(name):
+    """The two non-RL tasks: raw rpm clipped to [0, max_rpm], and velocity
+    commands through the embedded PID (a zero direction included); the
+    20-value state vector as observation."""
+    from gym_pybullet_drones_tpu.envs import tasks as jtasks
+    from gym_pybullet_drones_tpu_torch.envs import tasks as ttasks
+    (jcfg, _), (tcfg, _) = pair("multihover")
+    jtask, ttask = getattr(jtasks, name)(), getattr(ttasks, name)()
+    assert ttask.action_buffer_shape(tcfg) == (0, 4) \
+        and ttask.obs_dim(tcfg) == 20
+    js, jobs, _ = jcore.reset(jcfg, jtask)
+    ts, tobs, _ = tcore.reset(tcfg, ttask, device="cpu")
+    _close(tobs, jobs)
+    rng = np.random.default_rng(3)
+    for t in range(4):
+        if name == "CtrlTask":
+            a = rng.uniform(-2000, 26000, size=(2, 4)).astype(np.float32)
+        else:
+            a = rng.normal(size=(2, 4)).astype(np.float32)
+            a[0, :3] *= t > 0                   # a zero direction at first
+        js, jo, jr, jte, jtr, _ = jcore.step(jcfg, jtask, js,
+                                             jnp.asarray(a, jnp.float32))
+        ts, to, tr, tte, ttr, _ = tcore.step(tcfg, ttask, ts,
+                                             torch.from_numpy(a))
+        # the observation holds the rpm: RPM_TOL's relative part on those
+        np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=RTOL,
+                                   atol=PID_ATOL, err_msg=f"t={t}")
+        assert float(tr) == float(jr) == -1.0
+        assert not bool(tte) and not bool(ttr)
+    assert float(ts.last_rpm.min()) >= 0.0 \
+        and float(ts.last_rpm.max()) <= float(np.float32(tcfg.drone.max_rpm))
 
 
 def test_step_autoreset_batched_matches_jax_vmap():
@@ -54,7 +98,7 @@ def test_step_autoreset_batched_matches_jax_vmap():
     js = jax.tree.map(lambda x: jnp.stack([x] * b), js1)
     js = js._replace(step_counter=jnp.asarray([0, 1928, 8], jnp.int32))
     ts1, _, _ = tcore.reset(tcfg, ttask, device="cpu")
-    ts = tcore.EnvState(*(torch.stack([x] * b) for x in ts1))
+    ts = tcore.map_leaves(lambda x: torch.stack([x] * b), ts1)
     ts = ts._replace(step_counter=torch.tensor([0, 1928, 8],
                                                dtype=torch.int32))
     a = (0.3 * np.random.default_rng(6).normal(size=(b, 2, 4))) \
@@ -73,7 +117,8 @@ def test_step_autoreset_batched_matches_jax_vmap():
 
 def test_unported_parts_say_so():
     import dataclasses
-    from gym_pybullet_drones_tpu_torch.envs import HoverTask
+    from gym_pybullet_drones_tpu_torch.envs import (
+        HoverTask, make_routing_config)
     from gym_pybullet_drones_tpu_torch.utils import enums as TE
     _, (tcfg, ttask) = pair()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -81,8 +126,9 @@ def test_unported_parts_say_so():
                     ttask, device="cpu")
     ts, _, _ = tcore.reset(tcfg, ttask, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcore.step(tcfg, HoverTask(act=TE.ActionType.VEL), ts,
-                   torch.zeros((1, 4)))
+        # the routing configuration's default physics is PYB, as in the
+        # JAX package; only DYN is ported
+        tcore.reset(*make_routing_config(2), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         HoverTask(obs=TE.ObservationType.RGB).compute_obs(tcfg, ts)
     with pytest.raises(NotImplementedError):

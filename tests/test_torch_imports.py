@@ -29,6 +29,10 @@ def test_scan_sees_the_port():
     names = {os.path.relpath(p, ROOT) for p in FILES}
     for must in ("gym_pybullet_drones_tpu_torch/envs/fast.py",
                  "gym_pybullet_drones_tpu_torch/ops/kernel_fused.py",
+                 "gym_pybullet_drones_tpu_torch/ops/kernel_pid.py",
+                 "gym_pybullet_drones_tpu_torch/control/__init__.py",
+                 "gym_pybullet_drones_tpu_torch/control/dsl_pid.py",
+                 "gym_pybullet_drones_tpu_torch/envs/routing.py",
                  "gym_pybullet_drones_tpu_torch/_build.py", "chip_smoke.py"):
         assert must in names
     assert FORBIDDEN.search("import jax.numpy as jnp")
@@ -42,5 +46,7 @@ def test_kernels_build_only_on_use():
     from gym_pybullet_drones_tpu_torch import _build
     import gym_pybullet_drones_tpu_torch.envs  # noqa: F401
     assert _build._loaded is None
+    assert set(_build.KERNELS) == {"dyn_ctrl_step", "pid_dyn_ctrl_step",
+                                   "fused_env_step"}
     for src, _ in _build.KERNELS.values():
         assert os.path.isfile(os.path.join(_build.CSRC_DIR, src))

@@ -16,11 +16,12 @@ from gym_pybullet_drones_tpu_torch.envs import fast as tfast
 from gym_pybullet_drones_tpu_torch.ops import kernel_fused
 from gym_pybullet_drones_tpu_torch.utils import enums as TE
 
-from tests._torch_helpers import ATOL, RTOL, pair
+from tests._torch_helpers import ATOL, PID_ATOL, RTOL, pair, routing_pair
 
 
-def _compare(j_make, kind, act, b, steps, scale, seed=0):
-    (jcfg, jtask), (tcfg, ttask) = pair(kind, act)
+def _compare(j_make, kind, act, b, steps, scale, seed=0, atol=ATOL):
+    (jcfg, jtask), (tcfg, ttask) = routing_pair(3, 0.4) \
+        if kind == "routing" else pair(kind, act)
     n = jcfg.num_drones
     act_dim = jtask.action_buffer_shape(jcfg)[1]
     j_reset, j_step = j_make(jcfg, jtask, b)
@@ -29,7 +30,7 @@ def _compare(j_make, kind, act, b, steps, scale, seed=0):
                                                device="cpu")
     jc, jobs = j_reset()
     tc, tobs = t_reset()
-    np.testing.assert_allclose(tobs.numpy(), np.asarray(jobs), atol=ATOL)
+    np.testing.assert_allclose(tobs.numpy(), np.asarray(jobs), atol=atol)
     j_step = jax.jit(j_step)
     rng = np.random.default_rng(seed)
     any_done = False
@@ -40,9 +41,9 @@ def _compare(j_make, kind, act, b, steps, scale, seed=0):
         np.testing.assert_array_equal(tte.numpy(), np.asarray(jte), f"t={t}")
         np.testing.assert_array_equal(ttr.numpy(), np.asarray(jtr), f"t={t}")
         np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=RTOL,
-                                   atol=ATOL, err_msg=f"t={t}")
+                                   atol=atol, err_msg=f"t={t}")
         np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=RTOL,
-                                   atol=ATOL, err_msg=f"t={t}")
+                                   atol=atol, err_msg=f"t={t}")
         any_done |= bool(np.any(np.asarray(jte | jtr)))
     return any_done
 
@@ -75,6 +76,26 @@ def test_fused_multihover_matches_xla():
                     scale=0.8)
 
 
+@pytest.mark.parametrize("act", ["one_d_pid", "vel", "pid"])
+def test_fused_pid_family_matches_xla(act):
+    """The embedded DSL-PID ticks inside the step (9 carry rows per drone);
+    tolerance of tests/test_fused.py:83-95, 5e-5 absolute."""
+    _compare(_j_batched, "hover", act, b=8, steps=6, scale=0.3,
+             atol=PID_ATOL)
+
+
+def test_fused_one_d_pid_matches_pallas_interpret():
+    _compare(_j_fused, "hover", "one_d_pid", b=8, steps=3, scale=0.3,
+             atol=PID_ATOL)
+
+
+def test_fused_routing_matches_xla():
+    """Three drones 0.4 m apart, PID waypoint actions, 6 extra obs rows per
+    drone (tests/test_fused.py:98-102, on DYN physics here)."""
+    _compare(_j_batched, "routing", None, b=4, steps=6, scale=0.3,
+             atol=PID_ATOL)
+
+
 def test_layout_rows():
     assert kernel_fused._layout(1, 60) == (80, 81)
     assert kernel_fused._layout(1, 15, TE.ActionType.ONE_D_RPM) == (35, 36)
@@ -86,8 +107,19 @@ def test_layout_rows():
         spec = kernel_fused.FusedSpec(
             tcfg, ttask, ((0.0,) * 16,) * tcfg.num_drones)
         assert (spec.carry_rows, spec.out_rows) == (rc, ro)
-    with pytest.raises(NotImplementedError):
-        kernel_fused._layout(1, 45, TE.ActionType.PID)
+    # the PID family carries 9 more rows per drone, before the ring
+    assert kernel_fused._layout(1, 45, TE.ActionType.PID) == (74, 75)
+    assert kernel_fused._layout(4, 45, TE.ActionType.PID) == (74, 297)
+    for act, rc, ro in (("one_d_pid", 45, 30), ("vel", 90, 75),
+                        ("pid", 75, 60)):
+        _, (tcfg, ttask) = pair("hover", act)
+        spec = kernel_fused.FusedSpec(tcfg, ttask, ((0.0,) * 16,))
+        assert (spec.carry_rows, spec.out_rows, spec.n_extra) == (rc, ro, 0)
+    _, (rcfg, rtask) = routing_pair(4)
+    spec = kernel_fused.FusedSpec(rcfg, rtask, ((0.0,) * 16,) * 4)
+    assert (spec.carry_rows, spec.out_rows, spec.n_extra) == (297, 255, 6)
+    with pytest.raises(ValueError):
+        kernel_fused._layout(1, 45, "pid")
 
 
 @pytest.mark.parametrize("layout", ["flat", "drone", "rows"])
@@ -114,13 +146,18 @@ def test_obs_layouts_agree(layout):
 
 @pytest.mark.parametrize("why", ["noise", "pid", "no_row_post", "layout"])
 def test_fused_rejects_ineligible(why):
-    from gym_pybullet_drones_tpu_torch.envs import HoverTask, RLTask
+    from gym_pybullet_drones_tpu_torch.envs import (
+        HoverTask, RLTask, VelocityTask)
     _, (tcfg, _) = pair()
     kw = {}
     if why == "noise":
         task = HoverTask(reset_pos_noise=0.1)
     elif why == "pid":
-        task = HoverTask(act=TE.ActionType.PID)
+        # HoverTask's PID-family actions are taken; an embedded-PID task
+        # without KIN observations and row hooks is not
+        tfast.make_fused_rollout(tcfg, HoverTask(act=TE.ActionType.PID), 4,
+                                 device="cpu")
+        task = VelocityTask()
     elif why == "no_row_post":
         task = RLTask()
     else:

@@ -25,11 +25,14 @@ def _inputs(dtype):
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 @pytest.mark.parametrize("fn", ["quat_to_mat", "rpy_to_quat", "quat_to_rpy",
-                                "integrate_quat"])
+                                "integrate_quat", "mat_to_euler_xyz",
+                                "euler_xyz_to_quat"])
 def test_quat_matches_jax(fn, dtype):
     q, rpy, omega = _inputs(dtype)
+    mat = np.array(jq.quat_to_mat(jnp.asarray(q)))
     args = {"quat_to_mat": (q,), "rpy_to_quat": (rpy,), "quat_to_rpy": (q,),
-            "integrate_quat": (q, omega)}[fn]
+            "integrate_quat": (q, omega), "mat_to_euler_xyz": (mat,),
+            "euler_xyz_to_quat": (rpy,)}[fn]
     extra = (1 / 240,) if fn == "integrate_quat" else ()
     ref = np.asarray(getattr(jq, fn)(*(jnp.asarray(a) for a in args), *extra))
     out = getattr(tq, fn)(*(torch.from_numpy(a) for a in args), *extra)
@@ -43,3 +46,16 @@ def test_rpy_round_trip():
     _, rpy, _ = _inputs(np.float64)
     back = tq.quat_to_rpy(tq.rpy_to_quat(torch.from_numpy(rpy)))
     np.testing.assert_allclose(back.numpy(), rpy, atol=1e-12)
+
+
+def test_euler_xyz_round_trip_and_clip():
+    """Intrinsic-XYZ angles -> quaternion -> matrix -> the same angles; an
+    entry of 1 + 1 ulp, which a normalisation can leave, gives pi/2 and not
+    NaN."""
+    _, e, _ = _inputs(np.float64)
+    m = tq.quat_to_mat(tq.euler_xyz_to_quat(torch.from_numpy(e)))
+    np.testing.assert_allclose(tq.mat_to_euler_xyz(m).numpy(), e, atol=1e-12)
+    over = torch.eye(3, dtype=torch.float32)
+    over[0, 2] = float(np.nextafter(np.float32(1), np.float32(2)))
+    b = tq.mat_to_euler_xyz(over)[1]
+    assert torch.isfinite(b) and abs(float(b) - np.pi / 2) < 1e-6
