@@ -7,13 +7,16 @@ Builds the hand-written CUDA kernels from the sources in this checkout,
 holds each against its plain PyTorch version on the card, and drives the
 port's main paths — the batched DYN rollout of HoverTask (4096 envs),
 MultiHoverTask (2 drones, 8192 envs) and the routing fleet (RoutingTask, 4
-drones, 4096 envs, embedded DSL-PID) through `make_fused_rollout` and
-`make_batched_step` — checking what comes out.  Any failed phase raises and
+drones, 4096 envs, embedded DSL-PID), then the PYB family: the routing
+fleet in its default configuration (PYB physics, ground and drone-drone
+contact) and HoverTask under PYB_GND_DRAG_DW (ground effect, drag, ground
+contact), 4096 envs each — through `make_fused_rollout` and
+`make_batched_step`, checking what comes out.  Any failed phase raises and
 the process exits non-zero.  It imports only torch, numpy and the port.
 
 Output: one JSON object per line, in order `env`, `build`,
 `kernel_checks`, `rollout_hover`, `rollout_multihover`, `rollout_routing`,
-`timing`, then the
+`rollout_routing_pyb`, `rollout_hover_pyb_aero`, `timing`, then the
 `{"kernels": [...]}` summary (one entry per kernel and main-path shape),
 then the card's name and power limit as nvidia-smi prints them, then
 `{"ok": true, "device": {...}}` as the last line.
@@ -36,6 +39,23 @@ PID_OBS_TOL = (5e-5, 1e-4)  # (atol, rtol)
 PID_RPM_TOL = (0.5, 2e-5)
 PID_STATE_TOL = (3e-5, 3e-4)
 PID_ROWS_TOL = (2e-5, 3e-4)
+# The PYB family: contact impulses reach the angular velocity through 1/J
+# (7e4 for a Crazyflie), so the world ang-vel rows get the JAX package's own
+# tolerance for this kernel (tests/test_pallas.py:241-259).  A separated
+# contact inside the speculative window is driven to the closing speed
+# depth/dt, 240 x a difference of positions of order 1 m: the 0.5 ulp by
+# which a fused and an unfused p + dt*v differ (6e-8) is 1.4e-5 of velocity
+# on each of 8 substeps, so the velocity rows get 1e-4.  Every other row
+# keeps ATOL, RTOL.
+PYB_ANGV_TOL = (5e-4, 3e-4)
+PYB_VEL_TOL = (1e-4, 1e-4)
+# Downwash switches on at dz > 0 with a magnitude ~ 1/dz^2 (10^3 m/s of
+# velocity per control step at dz = 1 cm on a Crazyflie): two drones of an
+# env within this height of each other [m] before the step are at a tie,
+# and such an env is left out of a comparison if the two versions differ.
+DW_TIE_MARGIN = 5e-3
+SPHERE = (0.5, 0.5, 1.0, 0.15)             # obstacles of the PYB checks:
+BOX = (-0.5, -0.5, 1.0, 0.15, 0.1, 0.2)    # centre + radius / half extents
 FLAG_MARGIN = 1e-5          # a flag may differ only this close to a tie
 NN_MARGIN = 1e-5            # nearest-neighbour tie: relative gap of the two
                             # smallest squared distances
@@ -89,6 +109,145 @@ def bound_ms(rows, b, ops):
                                  else "operations")
 
 
+def pyb_ops_per_env(n_substeps, n, gnd, drag, dw, sweeps, n_spheres=0,
+                    n_boxes=0, pid=False, euler_calls=1):
+    """Float32 operations one env NEEDS for a PYB-family control step: the
+    nonzero terms of `gpd_pyb_substep_all` (each add, multiply, compare or
+    select, sqrt, division, exp and trig call as one).  The ground contact's
+    directions are the unit axes e_k, so arm x e_k, (.) . e_k and
+    arm x (dj e_k) are counted for their nonzero terms only, and a value no
+    later term reads is not counted.  Per drone and substep:
+
+    - rotation rows 44: |q|^2 7, 1/|q|^2 1, nine scaled products 15 (three
+      squares shared), nine entries 21;
+    - thrust and torques 55: four motor forces and their sum 11, yaw torque
+      8, the two paired roll/pitch torques 18, world force 3, world torque 15;
+    - velocity update 85: linear 13, gyroscopic bias and angular 72;
+    - the 4 rim points 364, each 91: arm 9 (one body coordinate is 0), depth
+      1, gate and target velocity 3, and 3 effective masses of 26 (R^T of a
+      two-term arm x e_k 9, J^-1 3, the two rows of R that (.) x arm . e_k
+      reads 10, that product 3, + 1/m 1);
+    - one sweep over them 532, each point 133: the normal impulse 45 (the one
+      component of w x arm 3, closing speed 1, impulse and clamp 6, v 2, the
+      two-term arm x impulse 2, R J^-1 R^T of it 27, w 3, friction limit 1)
+      and two tangent impulses of 44;
+    - position and quaternion 53;
+    - ground effect 167 (roll and pitch with the gate 27, each propeller 35),
+      drag 43, downwash 24 per other drone + 6;
+    - a sphere 15 and a box 40 to set up, 60 per sweep each.
+
+    Per unordered pair and substep 523 (both general effective masses 228,
+    the two cylinder clamps 94, the impulse into both bodies 84, the rest
+    117), plus 56 per drone (its post-step rotation 44, the impulse applied
+    12).  The solve runs every sweep and every point whatever is in contact,
+    so the count does not depend on the data.  Around it per drone: one Euler
+    extraction 40 each, task and select 40, the PID tick and setpoints 345.
+    """
+    n_obs = n_spheres + n_boxes
+    per = 44 + 55 + 85 + 364 + 53 + sweeps * (532 + 60 * n_obs) \
+        + 15 * n_spheres + 40 * n_boxes
+    per += (167 if gnd else 0) + (43 if drag else 0)
+    if dw and n > 1:
+        per += 24 * (n - 1) + 6
+    sub = n * per
+    if n > 1:
+        sub += 523 * n * (n - 1) // 2 + 56 * n
+    return n_substeps * sub + n * (40 * euler_calls + 40
+                                   + (345 if pid else 0))
+
+
+def pyb_case_states(rng, b, n, params, dw=False):
+    """(n, 16, b) float32 state rows of n drones in b envs.  In eighths of
+    the envs: on the ground (rim points within the contact window), tilted
+    past the upright gate, a pair inside 2 * collision_r, stacked drones,
+    drone 0 around the sphere (an eighth of those deep inside), drone 0
+    around the box (inside and outside); the rest in free flight.  With
+    `dw` (the downwash modes) the drones of one env keep apart in height:
+    at equal heights the downwash is unbounded, and the close pair sits one
+    above the other.  Returns the states and {case: column slice}."""
+    rc, h2 = params.collision_r, params.collision_h / 2
+    st = np.stack([rand_state_rows(rng, b) for _ in range(n)])
+    e = b // 8
+    cases = {"ground": slice(0, e), "tilted": slice(e, 2 * e),
+             "pair": slice(2 * e, 3 * e), "stacked": slice(3 * e, 4 * e),
+             "sphere": slice(4 * e, 5 * e), "box": slice(5 * e, 6 * e)}
+    g, t = cases["ground"], cases["tilted"]
+    for d in range(n):
+        st[d, 0] += 0.6 * d        # apart, unless a case says otherwise
+        st[d, 2, g] = h2 - params.collision_z_offset \
+            + rng.uniform(-0.02, 0.02, size=e) + (0.15 * d if dw else 0.0)
+        st[d, 3:7, g] = rng.normal(size=(4, e)) * 0.03 \
+            + np.array([[0.0]] * 3 + [[1.0]])
+        roll = rng.uniform(1.7, 2.8, size=e) * rng.choice([-1, 1], size=e)
+        st[d, 3:7, t] = np.stack([np.sin(roll / 2), 0 * roll, 0 * roll,
+                                  np.cos(roll / 2)])
+        st[d, 2, t] = 0.05 + rng.uniform(0, 0.1, size=e) \
+            + (0.25 * d if dw else 0.0)
+    if n > 1:
+        pr, sk = cases["pair"], cases["stacked"]
+        off = rng.normal(size=(3, e))
+        off *= rng.uniform(0.07, 0.14, size=e) / np.linalg.norm(off, axis=0)
+        if dw:
+            off = np.stack([rng.uniform(-0.03, 0.03, size=e),
+                            rng.uniform(-0.03, 0.03, size=e),
+                            rng.uniform(0.06, 0.13, size=e)
+                            * rng.choice([-1, 1], size=e)])
+        st[1, 0:3, pr] = st[0, 0:3, pr] + off
+        for d in range(1, n):
+            st[d, 0:2, sk] = st[0, 0:2, sk] + rng.normal(size=(2, e)) * 0.02
+            st[d, 2, sk] = st[0, 2, sk] + 0.35 * d \
+                + rng.uniform(-0.05, 0.05, size=e)
+    u = rng.normal(size=(3, e))
+    u /= np.linalg.norm(u, axis=0)
+    dist = SPHERE[3] + rc + rng.uniform(-0.04, 0.04, size=e)
+    dist[:e // 8] = rng.uniform(0.0, 0.05, size=e // 8)
+    st[0, 0:3, cases["sphere"]] = np.asarray(SPHERE[:3])[:, None] + u * dist
+    st[0, 0:3, cases["box"]] = np.asarray(BOX[:3])[:, None] \
+        + np.asarray(BOX[3:])[:, None] * rng.uniform(-1.5, 1.5, size=(3, e))
+    st[:, 3:7] /= np.linalg.norm(st[:, 3:7], axis=1, keepdims=True)
+    return st.astype(np.float32), cases
+
+
+def pyb_case_counts(st, params, obstacles):
+    """How many envs of (n, 16, b) numpy states hold each case: a rim point
+    within the contact window of the ground, a drone past the upright gate,
+    a pair inside 2 * collision_r + slop, a drone stacked over another
+    (within 5 cm horizontally), a drone in the contact window of an
+    obstacle, and a pair at a downwash tie."""
+    n = st.shape[0]
+    rc, h2, slop = params.collision_r, params.collision_h / 2, 0.02
+    p, q = st[:, 0:3], st[:, 3:7]
+    x, y, z, w = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
+    # lowest rim point: the body z axis tilts the bottom disk
+    zz = 1 - 2 * (x * x + y * y)
+    low = p[:, 2] - h2 * np.abs(zz) - rc * np.sqrt(np.maximum(1 - zz * zz, 0))
+    roll = np.arctan2(2 * (w * x + y * z), 1 - 2 * (x * x + y * y))
+    pitch = np.arcsin(np.clip(2 * (w * y - z * x), -1, 1))
+    out = {"ground": int((low < slop).any(axis=0).sum()),
+           "tilted": int(((np.abs(roll) >= np.pi / 2)
+                          | (np.abs(pitch) >= np.pi / 2)).any(axis=0).sum())}
+    pair = stacked = tie = np.zeros(st.shape[2], bool)
+    for i in range(n):
+        for j in range(i + 1, n):
+            d = p[i] - p[j]
+            dxy = np.hypot(d[0], d[1])
+            pair = pair | (np.linalg.norm(d, axis=0) < 2 * rc + slop)
+            stacked = stacked | ((dxy < 0.05) & (np.abs(d[2]) > 0.1))
+            tie = tie | (np.abs(d[2]) < DW_TIE_MARGIN)
+    hit = np.zeros(st.shape[2], bool)
+    for o in obstacles:
+        rel = p - np.asarray(o[:3])[None, :, None]
+        if len(o) == 4:
+            gap = np.linalg.norm(rel, axis=1) - o[3] - rc
+        else:
+            half = np.asarray(o[3:])[None, :, None]
+            gap = np.linalg.norm(rel - np.clip(rel, -half, half), axis=1) - rc
+        hit = hit | (gap < slop).any(axis=0)
+    out.update(pair=int(pair.sum()), stacked=int(stacked.sum()),
+               obstacle=int(hit.sum()), downwash_tie=int(tie.sum()))
+    return out
+
+
 def eager_ms(fn, reps, warmup=3):
     """Per-call time of `fn` between two CUDA events (host enqueue
     included when the card outruns the host)."""
@@ -129,7 +288,7 @@ def check_close(name, got, ref, cols=None, tol=(ATOL, RTOL)):
     if bad.any():
         raise AssertionError(
             f"{name}: {int(bad.sum())} values beyond atol/rtol "
-            f"{PID_OBS_TOL if torch.is_tensor(atol) else tol}, "
+            f"{tuple(float(torch.as_tensor(x).max()) for x in tol)}, "
             f"max abs err {float(err.max())}, worst row "
             f"{int((err - rtol * ref.abs()).max(dim=1).values.argmax())}")
     return float(err.max())
@@ -167,7 +326,9 @@ def main():
         make_batched_step, make_fused_rollout, make_routing_config)
     from gym_pybullet_drones_tpu_torch.envs.tasks import TASK_ROUTING
     from gym_pybullet_drones_tpu_torch.ops import (
-        kernel_dyn, kernel_fused, kernel_pid)
+        kernel_dyn, kernel_env, kernel_fused, kernel_math, kernel_pid)
+    from gym_pybullet_drones_tpu_torch.ops.kernel_env import (
+        DRAG_MODES, DW_MODES, GND_MODES)
     from gym_pybullet_drones_tpu_torch.ops.kernel_fused import PID_FAMILY
     from gym_pybullet_drones_tpu_torch.utils.enums import ActionType, Physics
 
@@ -187,7 +348,8 @@ def main():
     emit({"phase": "build", "seconds": round(_build.build_seconds, 3),
           "sources": sorted(src for src, _ in _build.KERNELS.values()),
           "ptxas": {name: [line.strip() for line in log.splitlines()
-                           if "registers" in line or "spill" in line]
+                           if "registers" in line or "spill" in line
+                           or "stack frame" in line]
                     for name, log in _build.build_log.items()}})
 
     def hover_cfg(n=1):
@@ -285,12 +447,155 @@ def main():
     pid_case(P.CF2P, P.CF2P, 4096, True)             # the + PWM mixer
     pid_case(P.CF2X, P.CF2X, 4 * 4096, True, timed="routing4x4096")
 
+    def dw_tie(pos):
+        """(n, 3, b) positions -> (b,) bool: some pair of the env's drones
+        within DW_TIE_MARGIN of one height."""
+        tie = torch.zeros(pos.shape[2], dtype=torch.bool, device=pos.device)
+        for i in range(pos.shape[0]):
+            for j in range(i + 1, pos.shape[0]):
+                tie |= (pos[i, 2] - pos[j, 2]).abs() < DW_TIE_MARGIN
+        return tie
+
+    def pyb_ops(cfg_physics, n, obstacles, sweeps=4, pid=False,
+                euler_calls=1):
+        return pyb_ops_per_env(
+            SUB, n, cfg_physics in GND_MODES, cfg_physics in DRAG_MODES,
+            cfg_physics in DW_MODES, sweeps,
+            sum(len(o) == 4 for o in obstacles),
+            sum(len(o) == 6 for o in obstacles), pid, euler_calls)
+
+    def env_case(physics, n, use_pid, emit_obs12, model, b, timed=None,
+                 obstacles=(SPHERE, BOX), sweeps=4):
+        """`env_ctrl_step` against its plain version from identical random
+        input, one launch: b envs of n drones with the case shares of
+        `pyb_case_states`."""
+        dw = physics in DW_MODES
+        st, _ = pyb_case_states(rng, b, n, model, dw)
+        counts = pyb_case_counts(st, model, obstacles)
+        rows = lambda x: torch.from_numpy(np.ascontiguousarray(
+            x.transpose(1, 2, 0).reshape(x.shape[1], b * n)
+            .astype(np.float32))).to(dev)       # (n, k, b) -> (k, b*n)
+        s = rows(st)
+        last = torch.from_numpy((model.hover_rpm * (
+            1 + 0.05 * rng.normal(size=(4, b * n)))).astype(np.float32)) \
+            .to(dev)
+        pid = None
+        if use_pid:
+            tgt = np.zeros((n, 12, b))
+            tgt[:, 0:3] = st[:, 0:3] + rng.normal(size=(n, 3, b)) * 0.3
+            tgt[:, 5] = rng.normal(size=(n, b)) * 0.5     # target yaw
+            tgt[:, 6:9] = rng.normal(size=(n, 3, b)) * 0.2
+            a = rows(tgt)
+            pid = torch.from_numpy(np.concatenate(
+                [rand_pid_rows(b) for _ in range(n)], axis=1)).to(dev)
+        else:
+            a = torch.from_numpy((model.hover_rpm * (
+                1 + 0.05 * rng.normal(size=(4, b * n))))
+                .astype(np.float32)).to(dev)
+        args = (P.CF2X if use_pid else None, model, physics, n, SUB, DT,
+                CTRL_DT, obstacles, s, a, pid, last, emit_obs12, sweeps)
+        run = lambda: kernel_env.env_ctrl_step_rows(*args)
+        plain = lambda: kernel_env.env_ctrl_step_plain(*args)
+        got, ref = run(), plain()
+        torch.cuda.synchronize()
+        pyb = physics != Physics.DYN
+        st_tol = PID_STATE_TOL if use_pid else (ATOL, RTOL)
+        wide = lambda tol: tuple(max(x, y) for x, y in zip(tol, st_tol)) \
+            if pyb else st_tol
+        angv, vel = wide(PYB_ANGV_TOL), wide(PYB_VEL_TOL)
+        tols = {"state": row_tols(16, [(0, 16, st_tol), (7, 10, vel),
+                                       (13, 16, angv)]),
+                "rpm": PID_RPM_TOL if use_pid else (0.0, 0.0),
+                "pid rows": PID_ROWS_TOL,
+                "obs12": row_tols(12, [(0, 12, st_tol), (6, 9, vel),
+                                       (9, 12, angv)])}
+        named = [(k, g, r) for k, g, r in zip(tols, got, ref)
+                 if g is not None]
+        # an env at a downwash tie is left out, if and only if the two
+        # versions do differ there (or overflow there)
+        tied = torch.zeros(b, dtype=torch.bool, device=dev)
+        if dw and n > 1:
+            differs = torch.zeros(b * n, dtype=torch.bool, device=dev)
+            for k, g, r in named:
+                atol, rtol = tols[k]
+                differs |= (~((g - r).abs() <= atol + rtol * r.abs())) \
+                    .any(dim=0)
+            tied = dw_tie(torch.from_numpy(st[:, 0:3]).to(dev)) \
+                & differs.reshape(b, n).any(dim=1)
+        same = (~tied).repeat_interleave(n)
+        errs = {k: check_close(f"env_ctrl_step {physics.value} n={n} {k}",
+                               g, r, same, tols[k]) for k, g, r in named}
+        rec = {"kernel": "env_ctrl_step", "physics": physics.value, "n": n,
+               "pid": use_pid, "emit_obs12": emit_obs12,
+               "model": model.model.value, "B": b, "sweeps": sweeps,
+               "max_abs_err": max(v for k, v in errs.items() if k != "rpm"),
+               "max_abs_err_rpm": errs["rpm"],
+               "envs_by_case": counts, "left_out_at_a_tie": int(tied.sum())}
+        if timed:
+            # in: 16 state rows per drone (under DYN 13: the ang-vel rows
+            # are recomputed), the action rows, the PID rows, the last rpm
+            # in the drag modes; out: state, rpm, PID rows, obs12
+            rows_moved = n * ((16 if pyb else 13)
+                              + (12 + 9 if use_pid else 4)
+                              + (4 if physics in DRAG_MODES else 0)
+                              + 16 + 4 + (9 if use_pid else 0)
+                              + (12 if emit_obs12 else 0))
+            ops = pyb_ops(physics, n, obstacles, sweeps, use_pid,
+                          int(emit_obs12)) if pyb else n * ops_per_column(
+                              SUB, pid=use_pid, euler_calls=int(emit_obs12))
+            bms, by = bound_ms(rows_moved, b, ops)
+            rec.update(ms=graph_ms(run), eager_ms=eager_ms(run, 100),
+                       plain_ms=eager_ms(plain, 2, 1), bound_ms=bms,
+                       bound_by=by, rows_moved=rows_moved, ops_per_env=ops)
+            summary[("env_ctrl_step", timed)] = rec
+        checks.append(rec)
+
+    for physics in (Physics.PYB, Physics.PYB_GND, Physics.PYB_DRAG,
+                    Physics.PYB_DW, Physics.PYB_GND_DRAG_DW, Physics.DYN):
+        for n in (1, 2, 4):
+            for use_pid in (False, True):
+                env_case(physics, n, use_pid, n != 2, P.CF2X, 1024)
+    for model in (P.CF2P, P.RACE):
+        for physics in (Physics.PYB, Physics.PYB_GND_DRAG_DW):
+            env_case(physics, 2, False, True, model, 1024)
+    env_case(Physics.PYB, 2, False, True, P.CF2X, 1024, sweeps=50)
+    # the main path's shapes: the routing fleet (PYB, embedded PID) and the
+    # hover under every aero effect, no obstacles in either
+    env_case(Physics.PYB, 4, True, True, P.CF2X, 4096,
+             timed="routing4x4096_pyb", obstacles=())
+    env_case(Physics.PYB_GND_DRAG_DW, 1, False, True, P.CF2X, 4096,
+             timed="hover4096_pyb_aero", obstacles=())
+
     def stepped_obs12(spec, carry, a_rows):
         """Per drone, the plain STEPPED (not reset) obs12 block of one
         fused step, from the kernels' plain versions."""
         cfg, task, n, A = spec.cfg, spec.task, spec.n, spec.act_dim
         per = (spec.carry_rows - 1) // n
         out = []
+        if cfg.physics != Physics.DYN:
+            # the coupled physics steps all drones of an env together
+            states, rpms, lasts = [], [], []
+            for d in range(n):
+                st = list(carry[d * per:d * per + 16])
+                a = a_rows[d * A:(d + 1) * A]
+                if task.act in PID_FAMILY:
+                    rpm, _ = kernel_pid.pid_tick_rows(
+                        P.CF2X, CTRL_DT, st,
+                        tuple(carry[d * per + 20:d * per + 29]),
+                        kernel_fused.pid_setpoint_rows(cfg, task, st, a))
+                else:
+                    rpm = list((cfg.drone.hover_rpm * (1.0 + 0.05 * a))
+                               .expand(4, -1))
+                states.append(st)
+                rpms.append(rpm)
+                lasts.append(list(carry[d * per + 16:d * per + 20]))
+            for f in kernel_env.pyb_ctrl_step_rows(
+                    cfg.drone, cfg.physics, SUB, DT, cfg.obstacles, states,
+                    rpms, lasts, cfg.solver_iterations):
+                out.append(torch.stack(
+                    tuple(f[0:3]) + kernel_math.quat_rpy_rows(*f[3:7])
+                    + tuple(f[7:10]) + tuple(f[13:16])))
+            return out
         for d in range(n):
             st = carry[d * per:d * per + 16].contiguous()
             a = a_rows[d * A:(d + 1) * A]
@@ -361,24 +666,39 @@ def main():
         # a mid-episode carry: random state, rpm, PID scratch and history;
         # counters up to past the episode's end, so that some envs truncate
         c = rng.normal(size=(spec.carry_rows, b)).astype(np.float32)
+        pyb = cfg.physics != Physics.DYN
+        dw = cfg.physics in DW_MODES
+        counts = None
+        if pyb:
+            # the case shares of the PYB checks: ground, tilted, pair,
+            # stacked, around the obstacles, free flight
+            st16, _ = pyb_case_states(rng, b, n, cfg.drone, dw)
         for d in range(n):
-            c[d * per:d * per + 16] = rand_state_rows(rng, b)
+            c[d * per:d * per + 16] = st16[d] if pyb \
+                else rand_state_rows(rng, b)
             c[d * per + 16:d * per + 20] = cfg.drone.hover_rpm * (
                 1 + 0.02 * rng.normal(size=(4, b)))
             if has_pid:
                 c[d * per + 20:d * per + 29] = rand_pid_rows(b)
         if routing:
-            # the first quarter of the envs has every drone slow and within
-            # a few centimetres of its destination (arrivals, some envs
-            # terminate); the second quarter has drone 1 within a decimetre
-            # of drone 0 (separation penalty)
-            q = b // 4
+            # a quarter of the envs has every drone slow and within a few
+            # centimetres of its destination (arrivals, some envs
+            # terminate); another quarter has drone 1 within a decimetre
+            # of drone 0 (separation penalty).  Under PYB they are the last
+            # two eighths, behind the contact cases.
+            q = b // 8 if pyb else b // 4
+            arr = slice(6 * q, 7 * q) if pyb else slice(0, q)
+            close = slice(7 * q, 8 * q) if pyb else slice(q, 2 * q)
             for d, dest in enumerate(task.destinations):
-                c[d * per:d * per + 3, :q] = np.asarray(dest)[:, None] \
+                c[d * per:d * per + 3, arr] = np.asarray(dest)[:, None] \
                     + 0.02 * rng.normal(size=(3, q))
-                c[d * per + 7:d * per + 10, :q] *= 0.05
-            c[per:per + 3, q:2 * q] = c[0:3, q:2 * q] \
+                c[d * per + 7:d * per + 10, arr] *= 0.05
+            c[per:per + 3, close] = c[0:3, close] \
                 + 0.06 * rng.normal(size=(3, q))
+        if pyb:
+            counts = pyb_case_counts(
+                np.stack([c[d * per:d * per + 16] for d in range(n)]),
+                cfg.drone, cfg.obstacles)
         last = int(task.episode_len_sec * cfg.ctrl_freq) + 6
         c[-1] = float(SUB) * rng.integers(0, last, size=b)
         carry = torch.from_numpy(c).to(dev)
@@ -408,16 +728,40 @@ def main():
                 > PID_OBS_TOL[0] + PID_OBS_TOL[1] * ro[rows].abs())
             tied |= nn_tie(sel) & beyond(ext).any(dim=0)
             tied |= (margin <= FLAG_MARGIN) & beyond(ro_base)
-        same = ~tied
         tol_c = tol_o = (ATOL, RTOL)
-        if has_pid:
-            spans = []
+        if has_pid or pyb:
+            wide = lambda x, y: tuple(max(u, v) for u, v in zip(x, y))
+            st_tol = PID_STATE_TOL if has_pid else (ATOL, RTOL)
+            ob_tol = PID_OBS_TOL if has_pid else (ATOL, RTOL)
+            angv = PYB_ANGV_TOL if pyb else (ATOL, RTOL)
+            vel = PYB_VEL_TOL if pyb else (ATOL, RTOL)
+            spans, ospans = [(0, spec.out_rows, ob_tol)], []
             for d in range(n):
-                spans += [(d * per, d * per + 16, PID_STATE_TOL),
-                          (d * per + 16, d * per + 20, PID_RPM_TOL),
-                          (d * per + 20, d * per + 29, PID_ROWS_TOL)]
-            tol_c = row_tols(spec.carry_rows, spans)
-            tol_o = PID_OBS_TOL
+                spans += [(d * per, d * per + 16, st_tol),
+                          (d * per + 7, d * per + 10, wide(vel, st_tol)),
+                          (d * per + 13, d * per + 16, wide(angv, st_tol))]
+                if has_pid:
+                    spans += [(d * per + 16, d * per + 20, PID_RPM_TOL),
+                              (d * per + 20, d * per + 29, PID_ROWS_TOL)]
+                ob = d * spec.obs_rows_per
+                ospans += [(ob + 6, ob + 9, wide(vel, ob_tol)),
+                           (ob + 9, ob + 12, wide(angv, ob_tol))]
+            tol_c = row_tols(spec.carry_rows, spans[1:])
+            tol_o = row_tols(spec.out_rows, spans[:1] + ospans)
+        if dw and n > 1:
+            # an env at a downwash tie is left out, if and only if the two
+            # versions do differ there
+            beyond_any = lambda g, r, tol: (
+                ~((g - r).abs() <= tol[0] + tol[1] * r.abs())).any(dim=0)
+            pos0 = torch.stack([carry[d * per:d * per + 3]
+                                for d in range(n)])
+            dw_tied = dw_tie(pos0) & (beyond_any(gc, rc_, tol_c)
+                                      | beyond_any(go, ro, tol_o))
+            n_dw_tied = int((dw_tied & ~tied).sum())
+            tied |= dw_tied
+        else:
+            n_dw_tied = 0
+        same = ~tied
         err_rpm = 0.0
         if has_pid:
             rpm_rows = torch.cat([torch.arange(d * per + 16, d * per + 20)
@@ -455,19 +799,29 @@ def main():
         # in: per drone 13 state rows, the PID rows and the ring without the
         # A rows it drops (last_rpm and ang-vel are never read), the counter
         # row and the action rows; out: the whole carry and the outputs
-        rows = n * (13 + (9 if has_pid else 0) + spec.buf_rows - A) + 1 \
+        # (under PYB the 16 state rows, and last_rpm in the drag modes)
+        rows = n * ((16 if pyb else 13)
+                    + (4 if cfg.physics in DRAG_MODES else 0)
+                    + (9 if has_pid else 0) + spec.buf_rows - A) + 1 \
             + n * A + spec.carry_rows + spec.out_rows
-        bms, by = bound_ms(rows, b, ops_per_column(
-            SUB, n, euler_calls=2, pid=has_pid, routing=routing))
+        ops = ops_per_column(SUB, n, euler_calls=2, pid=has_pid,
+                             routing=routing)
+        if pyb:
+            ops += pyb_ops(cfg.physics, n, cfg.obstacles,
+                           cfg.solver_iterations) \
+                - n * (175 * SUB + 30 + 40 + 40)
+        bms, by = bound_ms(rows, b, ops)
         rec.update({
             "max_abs_err": err, "flag_ties": int(flags_differ.sum()),
             "other_ties": int(tied.sum() - flags_differ.sum()),
             "done_share": float(done.float().mean()),
             "ms": graph_ms(run), "eager_ms": eager_ms(run, 200),
             "plain_ms": eager_ms(plain, 5, 1), "bound_ms": bms,
-            "bound_by": by, "rows_moved": rows})
+            "bound_by": by, "rows_moved": rows, "ops_per_env": ops})
         if has_pid:
             rec["max_abs_err_rpm"] = err_rpm
+        if pyb:
+            rec.update(envs_by_case=counts, left_out_at_a_tie=n_dw_tied)
         checks.append(rec)
         summary[("fused_env_step", name)] = rec
 
@@ -481,6 +835,17 @@ def main():
     for act in (ActionType.ONE_D_PID, ActionType.VEL, ActionType.PID):
         fused_case(f"hover4096_{act.value}", hover_cfg(), HoverTask(act=act),
                    4096)
+    # branch (d), the PYB family: the two main-path shapes, and a stacked
+    # pair under every aero effect with both obstacles
+    pcfg, ptask = make_routing_config(num_drones=4)
+    fused_case("routing4x4096_pyb", pcfg, ptask, 4096)
+    acfg = AviaryConfig(P.CF2X, 1, Physics.PYB_GND_DRAG_DW, 240, 30)
+    atask = HoverTask(act=ActionType.RPM)
+    fused_case("hover4096_pyb_aero", acfg, atask, 4096)
+    fused_case("multihover2x1024_pyb_aero_stacked", AviaryConfig(
+        P.CF2X, 2, Physics.PYB_GND_DRAG_DW, 240, 30,
+        init_xyzs=((0.0, 0.0, 0.3), (0.02, 0.0, 0.8)),
+        obstacles=(SPHERE, BOX)), MultiHoverTask(act=ActionType.RPM), 1024)
     emit({"phase": "kernel_checks", "atol": ATOL, "rtol": RTOL,
           "cases": checks})
 
@@ -499,10 +864,25 @@ def main():
         state before that step, and a flag may differ only within
         FLAG_MARGIN of its threshold."""
         n, A = cfg.num_drones, task.action_dim(cfg)
-        has_pid = task.act in PID_FAMILY
-        batched_kernel = kernel_pid if has_pid else kernel_dyn
+        pyb = cfg.physics != Physics.DYN
+        # re-anchored: the embedded PID, and the PYB family, whose contact
+        # solve amplifies a last-bit difference just as the attitude loop
+        has_pid = task.act in PID_FAMILY or pyb
+        batched_kernel = kernel_env if pyb else (
+            kernel_pid if task.act in PID_FAMILY else kernel_dyn)
         tol = PID_OBS_TOL if has_pid else (ATOL, RTOL)
         obs_dim = task.obs_dim(cfg)
+        if pyb:
+            # the world ang-vel columns of every drone's observation
+            tol = tuple(torch.full((n * obs_dim,), t, device=dev)
+                        for t in tol)
+            for d in range(n):
+                tol[0][d * obs_dim + 9:d * obs_dim + 12] = PYB_ANGV_TOL[0]
+                tol[1][d * obs_dim + 9:d * obs_dim + 12] = PYB_ANGV_TOL[1]
+        rc2 = (2 * cfg.drone.collision_r + 0.02) ** 2
+        n_pair = torch.zeros((), device=dev)
+        n_ground = torch.zeros((), device=dev)
+        per = (fused_spec(cfg, task).carry_rows - 1) // n
         acts = torch.from_numpy(
             (scale * np.random.default_rng(SEED + 1).normal(
                 size=(steps, b, n, A))).astype(np.float32)).to(dev)
@@ -521,6 +901,17 @@ def main():
             n_done = n_done + (term | trunc).sum()
             if t < compare_steps:
                 kept.append((obs, reward, term, trunc))
+            if pyb:
+                # env-steps that end with a drone pair inside the contact
+                # window, or a drone within it of the ground
+                pos = torch.stack([carry[d * per:d * per + 3]
+                                   for d in range(n)]).permute(2, 0, 1)
+                if n > 1:
+                    n_pair = n_pair + (pair_d2(pos) < rc2).any(dim=-1) \
+                        .any(dim=-1).sum()
+                n_ground = n_ground + (
+                    pos[:, :, 2] < cfg.drone.collision_h / 2 + 0.02) \
+                    .any(dim=-1).sum()
         torch.cuda.synchronize()
         if obs.shape != (b, n * obs_dim) or reward.shape != (b,):
             raise AssertionError(f"{name}: shapes {obs.shape} {reward.shape}")
@@ -564,19 +955,21 @@ def main():
             if routing:
                 # where a nearest neighbour or a separation penalty hangs
                 # on a tie and the paths do differ, take the fused value
-                beyond = lambda x, y: (x - y).abs() > tol[0] + tol[1] * y.abs()
+                beyond = lambda x, y, tl=tol: (
+                    (x - y).abs() > tl[0] + tl[1] * y.abs())
                 pos = state.pos.reshape(b, n, 3)
                 nn = nn_tie(pos)[:, None] & beyond(bo, fo)
                 nn[:, [c for c in range(n * obs_dim)
                        if c % obs_dim < obs_dim - 3]] = False
                 pen = ((pair_d2(pos) - task.collision_radius ** 2).abs()
                        .flatten(1).min(dim=1).values <= FLAG_MARGIN) \
-                    & beyond(br, fr)
+                    & beyond(br, fr, PID_OBS_TOL)
                 ties += int(nn.any(dim=1).sum() + pen.sum())
                 bo, br = torch.where(nn, fo, bo), torch.where(pen, fr, br)
             err = max(err, check_close(f"{name} obs t={t}", bo, fo, tol=tol),
                       check_close(f"{name} reward t={t}", br[None],
-                                  fr[None], tol=tol))
+                                  fr[None], tol=PID_OBS_TOL if has_pid
+                                  else tol))
         if batched_kernel.launches - before != compare_steps:
             raise AssertionError(f"{name}: batched path launch count")
         out = {"steps": steps, "envs": b, "resets": int(n_done),
@@ -594,6 +987,9 @@ def main():
             out["free_running_obs_drift_by_step"] = drift
         if routing:
             out["fused_vs_batched_ties"] = ties
+        if pyb:
+            out["env_steps_with_a_pair_in_contact"] = int(n_pair)
+            out["env_steps_with_a_drone_on_the_ground"] = int(n_ground)
         return out
 
     # rollout_hover
@@ -674,7 +1070,94 @@ def main():
     emit(routing)
     if kernel_dyn.launches != 0:
         raise AssertionError("routing went through dyn_ctrl_step")
-    for counts in (hover_counts, multi_counts, routing_counts):
+
+    def reset_counts():
+        kernel_dyn.launches = kernel_fused.launches = 0
+        kernel_pid.launches = kernel_env.launches = 0
+
+    def zero_action_episode(name, cfg, task, b, steps, expect):
+        """Zero actions through the fused path: which control steps
+        truncate, no termination, a finite carry."""
+        reset_fn, step_fn = make_fused_rollout(cfg, task, b, device=dev)
+        carry, _ = reset_fn()
+        zero = torch.zeros((b, cfg.num_drones, task.action_dim(cfg)),
+                           device=dev)
+        before = kernel_fused.launches
+        all_tr, any_tr, any_te = [], [], []
+        for t in range(steps):
+            carry, obs, reward, term, trunc = step_fn(carry, zero)
+            all_tr.append(trunc.all())
+            any_tr.append(trunc.any())
+            any_te.append(term.any())
+        all_tr, any_tr, any_te = (torch.stack(x).cpu().tolist()
+                                  for x in (all_tr, any_tr, any_te))
+        trunc_steps = [t + 1 for t, x in enumerate(any_tr) if x]
+        if trunc_steps != expect or any(any_te) \
+                or not all(all_tr[t - 1] for t in expect):
+            raise AssertionError(f"{name}, zero actions: truncation on "
+                                 f"steps {trunc_steps}, expected {expect}")
+        if not torch.isfinite(carry).all():
+            raise AssertionError(f"{name}, zero actions: non-finite carry")
+        if kernel_fused.launches - before != steps:
+            raise AssertionError(f"{name}, zero actions: launch count")
+        return trunc_steps
+
+    # rollout_routing_pyb: the routing fleet in its DEFAULT configuration,
+    # PYB physics with ground and drone-drone contact, embedded DSL-PID
+    reset_counts()
+    if pcfg.physics != Physics.PYB or ptask.obs_dim(pcfg) != 63:
+        raise AssertionError("the default routing configuration changed")
+    routing_pyb = {"phase": "rollout_routing_pyb",
+                   "zero_action_trunc_steps": zero_action_episode(
+                       "routing_pyb", pcfg, ptask, rb, 500, [482])}
+    routing_pyb.update(random_rollout("routing4x4096_pyb", pcfg, ptask, rb,
+                                      512, scale=0.3))
+    routing_pyb_counts = {"env_ctrl_step": kernel_env.launches,
+                          "fused_env_step": kernel_fused.launches}
+    routing_pyb["launches"] = routing_pyb_counts
+    emit(routing_pyb)
+    if kernel_dyn.launches or kernel_pid.launches:
+        raise AssertionError("routing PYB went through a DYN kernel")
+
+    # rollout_hover_pyb_aero: ground effect, stale drag, ground contact.
+    # First a landing: half the hover rpm on all four motors (a quarter of
+    # the thrust; the ground effect more than triples it at the ground, so
+    # 5 % less would hover at 6 cm) sinks the drone from its spawn 0.1 m
+    # over the ground onto it.  It must come to rest on its collision
+    # cylinder, level, and every env must do bitwise the same.  The
+    # sequential contact sweeps leave a drift of some 0.1 mm/s and a yaw
+    # rate of 1e-3 rad/s, so symmetry is held to a margin, not bitwise.
+    reset_counts()
+    reset_fn, step_fn = make_fused_rollout(acfg, atask, b, device=dev)
+    carry, obs = reset_fn()
+    down = torch.full((b, 1, 4), -10.0, device=dev)
+    for t in range(96):
+        carry, obs, reward, term, trunc = step_fn(carry, down)
+    same_everywhere = bool((carry == carry[:, :1]).all())
+    rest = carry[:, 0].cpu().tolist()
+    h2 = acfg.drone.collision_h / 2
+    landing = {"steps": 96, "rest_pos": rest[0:3], "rest_quat": rest[3:7],
+               "rest_vel": rest[7:10], "all_envs_bitwise_equal":
+               same_everywhere}
+    if not same_everywhere:
+        raise AssertionError("landing: envs differ from one another")
+    if not (h2 - 0.003 < rest[2] <= h2 + 1e-4 and abs(rest[9]) < 1e-4
+            and max(abs(rest[0]), abs(rest[1])) < 1e-3
+            and max(abs(rest[3]), abs(rest[4])) < 1e-3
+            and float(carry[-1, 0]) == 96 * SUB):
+        raise AssertionError(f"landing: {landing}; the cylinder's half "
+                             f"height is {h2}")
+    hover_aero = {"phase": "rollout_hover_pyb_aero", "landing": landing}
+    hover_aero.update(random_rollout("hover4096_pyb_aero", acfg, atask, b,
+                                     512))
+    hover_aero_counts = {"env_ctrl_step": kernel_env.launches,
+                         "fused_env_step": kernel_fused.launches}
+    hover_aero["launches"] = hover_aero_counts
+    emit(hover_aero)
+    if kernel_dyn.launches or kernel_pid.launches:
+        raise AssertionError("hover PYB went through a DYN kernel")
+    for counts in (hover_counts, multi_counts, routing_counts,
+                   routing_pyb_counts, hover_aero_counts):
         if min(counts.values()) == 0:
             raise AssertionError(f"a kernel was never launched: {counts}")
 
@@ -705,6 +1188,9 @@ def main():
     multi_rate, multi_step_ms = steps_per_s(mcfg, mtask, mb, 128)
     routing_rate, routing_step_ms = steps_per_s(rcfg, rtask, rb, 256,
                                                 scale=0.3)
+    routing_pyb_rate, routing_pyb_step_ms = steps_per_s(pcfg, ptask, rb, 256,
+                                                        scale=0.3)
+    hover_aero_rate, hover_aero_step_ms = steps_per_s(acfg, atask, b, 256)
     emit({"phase": "timing", "gpu": card,
           "hover4096_env_steps_per_s": hover_rate,
           "hover4096_wall_ms_per_step": hover_step_ms,
@@ -712,6 +1198,10 @@ def main():
           "multihover2x8192_wall_ms_per_step": multi_step_ms,
           "routing4x4096_env_steps_per_s": routing_rate,
           "routing4x4096_wall_ms_per_step": routing_step_ms,
+          "routing4x4096_pyb_env_steps_per_s": routing_pyb_rate,
+          "routing4x4096_pyb_wall_ms_per_step": routing_pyb_step_ms,
+          "hover4096_pyb_aero_env_steps_per_s": hover_aero_rate,
+          "hover4096_pyb_aero_wall_ms_per_step": hover_aero_step_ms,
           "note": "best of 3; python loop, one launch per control step; "
                   "wall_ms_per_step is host time per control step, to set "
                   "against the kernel's device ms"})
@@ -723,11 +1213,15 @@ def main():
         "pid_dyn_ctrl_step":
             "gym_pybullet_drones_tpu/ops/pallas_pid.py:182",
         "fused_env_step":
-            "gym_pybullet_drones_tpu/ops/pallas_fused.py:230"}
+            "gym_pybullet_drones_tpu/ops/pallas_fused.py:230",
+        "env_ctrl_step":
+            "gym_pybullet_drones_tpu/ops/pallas_env.py:588"}
     kernels = []
     for config, counts in (("hover4096", hover_counts),
                            ("multihover2x8192", multi_counts),
-                           ("routing4x4096", routing_counts)):
+                           ("routing4x4096", routing_counts),
+                           ("routing4x4096_pyb", routing_pyb_counts),
+                           ("hover4096_pyb_aero", hover_aero_counts)):
         for name in counts:
             rec = summary[(name, config)]
             kernels.append({

@@ -6,10 +6,12 @@ NVIDIA Hopper GPU, with plain tensor code in PyTorch and every kernel the
 JAX package wrote for the TPU written by hand in CUDA C++ (`csrc/`, built
 at first use by `_build.py`).
 
-Ported so far: the batched DYN rollout path — `envs.fast.make_fused_rollout`
-and `envs.fast.make_batched_step` for HoverTask and MultiHoverTask with RPM
-and ONE_D_RPM actions — and what it stands on.  ROADMAP.md lists what is
-still to port.  No Gymnasium ids are registered yet.
+Ported so far: the batched rollout path — `envs.fast.make_fused_rollout`
+and `envs.fast.make_batched_step` — and `envs.core.step` for HoverTask,
+MultiHoverTask and the routing fleet, every action type, every physics mode
+(DYN and the PYB family with its contacts and aero effects), and what they
+stand on.  ROADMAP.md lists what is still to port.  No Gymnasium ids are
+registered yet.
 
 Every entry point takes a `device`; None means the CUDA card and raises
 where there is none.

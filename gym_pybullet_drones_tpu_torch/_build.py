@@ -33,13 +33,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # -Xptxas -v costs nothing and puts each kernel's registers, stack frame and
 # spills into `build_log`.
 
-MAX_DRONES = 8  # GPD_MAX_DRONES
+MAX_DRONES = 8     # GPD_MAX_DRONES
+MAX_OBSTACLES = 8  # GPD_MAX_OBSTACLES
 
 # kernel name -> (source file, C entry point)
 KERNELS = {
     "dyn_ctrl_step": ("dyn_ctrl_step.cu", "gpd_dyn_ctrl_step"),
     "pid_dyn_ctrl_step": ("pid_dyn_ctrl_step.cu", "gpd_pid_dyn_ctrl_step"),
     "fused_env_step": ("fused_env_step.cu", "gpd_fused_env_step"),
+    "env_ctrl_step": ("env_ctrl_step.cu", "gpd_env_ctrl_step"),
 }
 
 
@@ -59,10 +61,40 @@ class PidConsts(ctypes.Structure):
                 ("plus_mixer", ctypes.c_int)]
 
 
+class TorqueAxis(ctypes.Structure):
+    """Mirror of `GpdTorqueAxis`: one body torque axis as paired factored
+    rpm differences (`ops/rigid_body._prop_coef_pairs`) and leftovers."""
+
+    _fields_ = [("n_pairs", ctypes.c_int), ("n_left", ctypes.c_int),
+                ("pair_i", ctypes.c_int * 2), ("pair_j", ctypes.c_int * 2),
+                ("left_i", ctypes.c_int * 4),
+                ("pair_c", ctypes.c_float * 2), ("left_c", ctypes.c_float * 4)]
+
+
+class PybConsts(ctypes.Structure):
+    """Mirror of `GpdPyb`: the PYB-family physics of one configuration."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "enabled", "gnd", "drag", "dw", "sweeps", "n_obstacles")] + [
+        ("tau_x", TorqueAxis), ("tau_y", TorqueAxis),
+        ("prop_x", ctypes.c_float * 4), ("prop_y", ctypes.c_float * 4)] + [
+        (name, ctypes.c_float) for name in (
+            "m", "two_inv_m", "gnd_eff_coeff", "gnd_eff_h_clip",
+            "prop_radius")] + [
+        ("neg_drag_c", ctypes.c_float * 3)] + [
+        (name, ctypes.c_float) for name in (
+            "rpm_to_rad", "dw1", "dw2", "dw3", "lin_damp", "ang_damp",
+            "erp_dt", "inv_dt", "mu", "slop", "rc", "z_lo", "z_hi",
+            "min_d")] + [
+        ("obs_kind", ctypes.c_int * MAX_OBSTACLES),
+        ("obs", (ctypes.c_float * 9) * MAX_OBSTACLES)]
+
+
 class StepParams(ctypes.Structure):
     """Mirror of `GpdStepParams`: every constant of one configuration."""
 
-    _fields_ = [("drone", DroneConsts), ("pid", PidConsts)] + [
+    _fields_ = [("drone", DroneConsts), ("pid", PidConsts),
+                ("pyb", PybConsts)] + [
         (name, ctypes.c_int) for name in (
             "n_drones", "n_substeps", "act_dim", "buf_rows", "act_type",
             "task_id", "n_extra", "relative_actions", "shaped")] + [
@@ -88,6 +120,11 @@ _ARGTYPES = {
     # carry, action rows, carry out, outs, B, ld, params, stream
     "gpd_fused_env_step": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                            ctypes.POINTER(StepParams), _P],
+    # state, actions, pid (may be NULL), last rpm (may be NULL), out, rpm
+    # out, pid out (may be NULL), obs12 (may be NULL), envs, ld, params,
+    # stream
+    "gpd_env_ctrl_step": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
+                          ctypes.c_int, ctypes.POINTER(StepParams), _P],
 }
 
 _loaded: dict | None = None

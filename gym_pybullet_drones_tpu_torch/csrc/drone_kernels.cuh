@@ -2,16 +2,16 @@
 //
 // The per-column arithmetic lives here once: the motor mixer, the explicit
 // DYN substeps, the Euler extraction, the cascaded DSL-PID tick with its
-// setpoints, and the Hover / MultiHover / Routing task post-processing.
-// dyn_ctrl_step.cu, pid_dyn_ctrl_step.cu and fused_env_step.cu are thin
-// __global__ shells around these functions, and the PYB kernel still to
-// come reuses them.  Everything is float32 and written as GPD_HD functions
-// (plain `inline` without nvcc), so the same bodies can be compiled for the
-// host.
+// setpoints, the coupled PYB-family substep over all drones of an env, and
+// the Hover / MultiHover / Routing task post-processing.
+// dyn_ctrl_step.cu, pid_dyn_ctrl_step.cu, env_ctrl_step.cu and
+// fused_env_step.cu are thin __global__ shells around these functions.
+// Everything is float32 and written as GPD_HD functions (plain `inline`
+// without nvcc), so the same bodies can be compiled for the host.
 //
 // Formulas mirror the plain PyTorch versions in ops/kernel_dyn.py,
-// ops/kernel_pid.py, ops/kernel_math.py, envs/tasks.py and envs/routing.py
-// line by line; change them together.
+// ops/kernel_pid.py, ops/kernel_env.py, ops/kernel_math.py, envs/tasks.py
+// and envs/routing.py line by line; change them together.
 #pragma once
 
 #include <math.h>
@@ -24,7 +24,9 @@
 #endif
 
 #define GPD_MAX_DRONES 8
+#define GPD_MAX_OBSTACLES 8
 #define GPD_S 16   // state rows per drone
+#define GPD_PS 13  // live PYB state per drone: pos3 quat4 vel3 world ang-vel3
 #define GPD_LR 4   // last-rpm rows per drone
 #define GPD_PR 9   // embedded-PID carry rows per drone (PID-family actions)
 #define GPD_TR 12  // PID setpoint rows: target pos, rpy, vel, rpy rates
@@ -56,11 +58,46 @@ struct GpdPid {
     int plus_mixer;   // 1 for the CF2P PWM mixer
 };
 
+// One body torque axis, sum_i coef_i * kf * rpm_i^2, as paired factored
+// differences (ri - rj)(ri + rj) * (c * kf) plus unpaired leftovers
+// (ops/rigid_body._prop_coef_pairs).  The products with kf are rounded once.
+struct GpdTorqueAxis {
+    int n_pairs, n_left;
+    int pair_i[2], pair_j[2], left_i[4];
+    float pair_c[2], left_c[4];
+};
+
+// The PYB-family physics of one configuration (ops/kernel_env.py:
+// fill_pyb_params).  Every float is computed in double and rounded once.
+struct GpdPyb {
+    int enabled;              // 0: explicit DYN physics
+    int gnd, drag, dw;        // aero effects of the mode
+    int sweeps;               // projected Gauss-Seidel sweeps
+    int n_obstacles;
+    GpdTorqueAxis tau_x, tau_y;
+    float prop_x[4], prop_y[4];   // prop offsets in the body frame
+    float m, two_inv_m;
+    float gnd_eff_coeff, gnd_eff_h_clip, prop_radius;
+    float neg_drag_c[3];      // -drag coefficient per world axis
+    float rpm_to_rad;         // 2 pi / 60
+    float dw1, dw2, dw3;      // downwash coefficients
+    float lin_damp, ang_damp; // (1 - 0.04)^dt
+    float erp_dt, inv_dt;     // ERP / dt, 1 / dt
+    float mu, slop;           // Coulomb friction, speculative-contact window
+    float rc, z_lo, z_hi;     // collision cylinder: radius, axial extent
+    float min_d;              // 2 * rc
+    int obs_kind[GPD_MAX_OBSTACLES];   // 0 sphere, 1 axis-aligned box
+    // sphere: centre3, radius, radius + rc; box: centre3, half extents3,
+    // half extents3 + rc
+    float obs[GPD_MAX_OBSTACLES][9];
+};
+
 // Everything the TPU kernels folded into their program at trace time.
 // Mirrored field by field by `StepParams` in _build.py.
 struct GpdStepParams {
     GpdDrone drone;
     GpdPid pid;
+    GpdPyb pyb;
     int n_drones, n_substeps, act_dim, buf_rows, act_type, task_id;
     int n_extra;              // task-specific obs rows per drone (routing: 6)
     int relative_actions;     // PID action is a displacement, not a goal
@@ -373,6 +410,503 @@ GPD_HD void gpd_pid_tick(const GpdPid& c, float ctrl_dt, const float* s,
         npid[3 + i] = ip[i];
         npid[6 + i] = ir[i];
     }
+}
+
+// ---- the PYB family: Bullet-like integrator, contact, aero effects ----
+
+// NaN-keeping max / min against a bound, as the plain versions' clamp.
+GPD_HD float gpd_at_least(float x, float lo) { return x < lo ? lo : x; }
+GPD_HD float gpd_at_most(float x, float hi) { return x > hi ? hi : x; }
+
+GPD_HD void gpd_mv(const float* r, const float* v, float* o) {
+    o[0] = r[0] * v[0] + r[1] * v[1] + r[2] * v[2];
+    o[1] = r[3] * v[0] + r[4] * v[1] + r[5] * v[2];
+    o[2] = r[6] * v[0] + r[7] * v[1] + r[8] * v[2];
+}
+
+GPD_HD void gpd_mtv(const float* r, const float* v, float* o) {
+    o[0] = r[0] * v[0] + r[3] * v[1] + r[6] * v[2];
+    o[1] = r[1] * v[0] + r[4] * v[1] + r[7] * v[2];
+    o[2] = r[2] * v[0] + r[5] * v[1] + r[8] * v[2];
+}
+
+GPD_HD void gpd_cross(const float* a, const float* b, float* o) {
+    o[0] = a[1] * b[2] - a[2] * b[1];
+    o[1] = a[2] * b[0] - a[0] * b[2];
+    o[2] = a[0] * b[1] - a[1] * b[0];
+}
+
+GPD_HD float gpd_dot3(const float* a, const float* b) {
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
+}
+
+// World inverse inertia applied to v: R (J^-1 (R^T v)).
+GPD_HD void gpd_iinv_w(const float* r, const GpdDrone& c, const float* v,
+                       float* o) {
+    float b[3];
+    gpd_mtv(r, v, b);
+    const float jb[3] = {c.inv_jx * b[0], c.inv_jy * b[1], c.inv_jz * b[2]};
+    gpd_mv(r, jb, o);
+}
+
+// Rotation-matrix rows of the (normalized by 1/|q|^2) quaternion q = xyzw.
+GPD_HD void gpd_rot_rows(const float* q, float* r) {
+    const float qx = q[0], qy = q[1], qz = q[2], qw = q[3];
+    const float n2 = qx * qx + qy * qy + qz * qz + qw * qw;
+    const float inv = 1.0f / n2;
+    const float xx = qx * qx * inv, yy = qy * qy * inv, zz = qz * qz * inv;
+    const float xy = qx * qy * inv, xz = qx * qz * inv, yz = qy * qz * inv;
+    const float wx = qw * qx * inv, wy = qw * qy * inv, wz = qw * qz * inv;
+    r[0] = 1.0f - 2.0f * (yy + zz); r[1] = 2.0f * (xy - wz);
+    r[2] = 2.0f * (xz + wy);
+    r[3] = 2.0f * (xy + wz); r[4] = 1.0f - 2.0f * (xx + zz);
+    r[5] = 2.0f * (yz - wx);
+    r[6] = 2.0f * (xz - wy); r[7] = 2.0f * (yz + wx);
+    r[8] = 1.0f - 2.0f * (xx + yy);
+}
+
+GPD_HD float gpd_tau_axis(const GpdTorqueAxis& t, const float* rpm) {
+    float out = 0.0f;
+    for (int k = 0; k < t.n_pairs; ++k)
+        out = out + gpd_dsq(rpm[t.pair_i[k]], rpm[t.pair_j[k]]) * t.pair_c[k];
+    for (int k = 0; k < t.n_left; ++k)
+        out = out + (rpm[t.left_i[k]] * rpm[t.left_i[k]]) * t.left_c[k];
+    return out;
+}
+
+// Effective mass of one body along `dir` at lever arm `arm`:
+// 1/m + ((I^-1 (arm x dir)) x arm) . dir
+GPD_HD float gpd_keff1(const float* r, const GpdDrone& c, const float* arm,
+                       const float* dir) {
+    float rxd[3], ii[3], x[3];
+    gpd_cross(arm, dir, rxd);
+    gpd_iinv_w(r, c, rxd, ii);
+    gpd_cross(ii, arm, x);
+    return gpd_dot3(x, dir);
+}
+
+// Unit normal and depth of static obstacle `e` against the bounding sphere
+// of radius rc about p.  Inside a box: the face of least penetration, the
+// first minimum over x, y, z.
+GPD_HD void gpd_obstacle_contact(const GpdPyb& y, int e, const float* p,
+                                 float* nrm, float& depth) {
+    const float* o = y.obs[e];
+    if (y.obs_kind[e] == 0) {
+        const float dx = p[0] - o[0], dy = p[1] - o[1], dz = p[2] - o[2];
+        const float dist = sqrtf(dx * dx + dy * dy + dz * dz);
+        const float inv_d = 1.0f / gpd_at_least(dist, 1e-6f);
+        nrm[0] = dx * inv_d; nrm[1] = dy * inv_d; nrm[2] = dz * inv_d;
+        depth = o[4] - dist;
+        return;
+    }
+    const float rx = p[0] - o[0], ry = p[1] - o[1], rz = p[2] - o[2];
+    const float cx = gpd_clip(rx, -o[3], o[3]);
+    const float cy = gpd_clip(ry, -o[4], o[4]);
+    const float cz = gpd_clip(rz, -o[5], o[5]);
+    const float dx = rx - cx, dy = ry - cy, dz = rz - cz;
+    const float dist = sqrtf(dx * dx + dy * dy + dz * dz);
+    const bool outside = dist > 1e-6f;
+    const float inv_d = 1.0f / gpd_at_least(dist, 1e-6f);
+    const float px = o[6] - fabsf(rx), py = o[7] - fabsf(ry),
+                pz = o[8] - fabsf(rz);
+    const bool isx = (px <= py) & (px <= pz);
+    const bool isy = !isx & (py <= pz);
+    const bool isz = !isx & !isy;
+    const float zero = dist * 0.0f;
+    nrm[0] = outside ? dx * inv_d : (isx ? (rx >= 0.0f ? 1.0f : -1.0f) : zero);
+    nrm[1] = outside ? dy * inv_d : (isy ? (ry >= 0.0f ? 1.0f : -1.0f) : zero);
+    nrm[2] = outside ? dz * inv_d : (isz ? (rz >= 0.0f ? 1.0f : -1.0f) : zero);
+    const float pen_in = fminf(fminf(px, py), pz);
+    depth = outside ? y.rc - dist : pen_in;
+}
+
+// One PYB substep of ONE drone: forces and torques from its pre-substep
+// state s = [p3 q4 v3 w3], velocity update, contact solve on the pre-substep
+// pose, position and quaternion update.  `dw_total` is the summed downwash
+// magnitude on this drone from the PRE-substep positions of the others.
+GPD_HD void gpd_pyb_drone_substep(const GpdStepParams& P, float* s,
+                                  const float* rpm, const float* drag_rpm,
+                                  float dw_total, bool has_dw) {
+    const GpdDrone& c = P.drone;
+    const GpdPyb& y = P.pyb;
+    const float dt = P.dt;
+    float r[9];
+    gpd_rot_rows(s + 3, r);
+
+    // ---- forces and torques from the PRE-substep state ----
+    float f[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f[i] = rpm[i] * rpm[i] * c.kf;
+    const float thrust = f[0] + f[1] + f[2] + f[3];
+    const float tau_bz =
+        (gpd_dsq(rpm[1], rpm[0]) + gpd_dsq(rpm[3], rpm[2])) * c.km_s;
+    const float tau_bx = gpd_tau_axis(y.tau_x, rpm);
+    const float tau_by = gpd_tau_axis(y.tau_y, rpm);
+    float fx = r[2] * thrust;
+    float fy = r[5] * thrust;
+    float fz = r[8] * thrust;
+    float tx = r[0] * tau_bx + r[1] * tau_by + r[2] * tau_bz;
+    float ty = r[3] * tau_bx + r[4] * tau_by + r[5] * tau_bz;
+    float tz = r[6] * tau_bx + r[7] * tau_by + r[8] * tau_bz;
+
+    if (y.gnd) {
+        // ground effect: per-prop heights via analytic FK, gated on
+        // |roll|, |pitch| < pi/2
+        float roll, pitch, yaw;
+        gpd_quat_rpy(s[3], s[4], s[5], s[6], roll, pitch, yaw);
+        const float half_pi = 1.57079632679489661923f;
+        const float gate =
+            ((fabsf(roll) < half_pi) & (fabsf(pitch) < half_pi)) ? 1.0f : 0.0f;
+#pragma unroll 1
+        for (int i = 0; i < 4; ++i) {
+            const float ox = y.prop_x[i], oy = y.prop_y[i];
+            const float wox = r[0] * ox + r[1] * oy;
+            const float woy = r[3] * ox + r[4] * oy;
+            const float woz = r[6] * ox + r[7] * oy;
+            const float h = gpd_at_least(s[2] + woz, y.gnd_eff_h_clip);
+            const float q = y.prop_radius / (4.0f * h);
+            const float g = (f[i] * y.gnd_eff_coeff * (q * q)) * gate;
+            const float gx = g * r[2], gy = g * r[5], gz = g * r[8];
+            fx = fx + gx; fy = fy + gy; fz = fz + gz;
+            // torque: world_off x world-frame prop force
+            tx = tx + (woy * gz - woz * gy);
+            ty = ty + (woz * gx - wox * gz);
+            tz = tz + (wox * gy - woy * gx);
+        }
+    }
+    if (y.drag) {
+        // R R^T (-c * sum(omega) * v) with the stale rpm of this substep
+        const float omega =
+            (drag_rpm[0] + drag_rpm[1] + drag_rpm[2] + drag_rpm[3])
+            * y.rpm_to_rad;
+        const float pre[3] = {y.neg_drag_c[0] * omega * s[7],
+                              y.neg_drag_c[1] * omega * s[8],
+                              y.neg_drag_c[2] * omega * s[9]};
+        const float bx = r[0] * pre[0] + r[3] * pre[1] + r[6] * pre[2];
+        const float by = r[1] * pre[0] + r[4] * pre[1] + r[7] * pre[2];
+        const float bz = r[2] * pre[0] + r[5] * pre[1] + r[8] * pre[2];
+        fx = fx + r[0] * bx + r[1] * by + r[2] * bz;
+        fy = fy + r[3] * bx + r[4] * by + r[5] * bz;
+        fz = fz + r[6] * bx + r[7] * by + r[8] * bz;
+    }
+    if (has_dw) {
+        fx = fx - dw_total * r[2];
+        fy = fy - dw_total * r[5];
+        fz = fz - dw_total * r[8];
+    }
+
+    // ---- semi-implicit velocity update, gyroscopic bias, damping ----
+    float v[3] = {s[7], s[8], s[9]};
+    float w[3] = {s[10], s[11], s[12]};
+    v[0] = (v[0] + dt * fx * c.inv_m) * y.lin_damp;
+    v[1] = (v[1] + dt * fy * c.inv_m) * y.lin_damp;
+    v[2] = (v[2] + dt * (fz * c.inv_m - 9.8f)) * y.lin_damp;
+    {
+        // dw_b = J^-1 (R^T tau - w_b x (J w_b))
+        const float tau[3] = {tx, ty, tz};
+        float tb[3], wb[3], gy[3], dw[3];
+        gpd_mtv(r, tau, tb);
+        gpd_mtv(r, w, wb);
+        const float jw[3] = {c.jx * wb[0], c.jy * wb[1], c.jz * wb[2]};
+        gpd_cross(wb, jw, gy);
+        const float db[3] = {c.inv_jx * (tb[0] - gy[0]),
+                             c.inv_jy * (tb[1] - gy[1]),
+                             c.inv_jz * (tb[2] - gy[2])};
+        gpd_mv(r, db, dw);
+        w[0] = (w[0] + dt * dw[0]) * y.ang_damp;
+        w[1] = (w[1] + dt * dw[1]) * y.ang_damp;
+        w[2] = (w[2] + dt * dw[2]) * y.ang_damp;
+    }
+
+    // ---- contact solve on the PRE-substep pose (PGS) ----
+    const float nvec[3] = {0.0f, 0.0f, 1.0f};
+    const float t1v[3] = {1.0f, 0.0f, 0.0f};
+    const float t2v[3] = {0.0f, 1.0f, 0.0f};
+    const float rim_x[4] = {y.rc, 0.0f, -y.rc, 0.0f};
+    const float rim_y[4] = {0.0f, y.rc, 0.0f, -y.rc};
+    float arms[4][3], pens[4], kn[4], kt[2][4];
+    float acc_n[4], acc_t[2][4];
+#pragma unroll
+    for (int ki = 0; ki < 4; ++ki) {
+        const float body[3] = {rim_x[ki], rim_y[ki], y.z_lo};
+        gpd_mv(r, body, arms[ki]);
+        pens[ki] = -(s[2] + arms[ki][2]);
+        kn[ki] = c.inv_m + gpd_keff1(r, c, arms[ki], nvec);
+        kt[0][ki] = c.inv_m + gpd_keff1(r, c, arms[ki], t1v);
+        kt[1][ki] = c.inv_m + gpd_keff1(r, c, arms[ki], t2v);
+        acc_n[ki] = 0.0f; acc_t[0][ki] = 0.0f; acc_t[1][ki] = 0.0f;
+    }
+    // static obstacles as centred contacts: no lever arm, no angular term
+    float en[GPD_MAX_OBSTACLES][3], edepth[GPD_MAX_OBSTACLES];
+    float eacc[GPD_MAX_OBSTACLES], etan[GPD_MAX_OBSTACLES];
+#pragma unroll 1
+    for (int e = 0; e < y.n_obstacles; ++e) {
+        gpd_obstacle_contact(y, e, s, en[e], edepth[e]);
+        eacc[e] = 0.0f; etan[e] = 0.0f;
+    }
+#pragma unroll 1
+    for (int it = 0; it < y.sweeps; ++it) {
+#pragma unroll
+        for (int ki = 0; ki < 4; ++ki) {
+            const float* arm = arms[ki];
+            const float a = pens[ki] > -y.slop ? 1.0f : 0.0f;
+            // normal impulse (accumulated, clamped >= 0); speculative
+            // target: Baumgarte push-out when penetrating, closing limit
+            // depth/dt when separated within the slop window
+            float wxr[3], t[3], dwv[3];
+            gpd_cross(w, arm, wxr);
+            const float vn = v[2] + wxr[2];
+            const float tgt = pens[ki] > 0.0f ? y.erp_dt * pens[ki]
+                                              : y.inv_dt * pens[ki];
+            float dj = (tgt - vn) / kn[ki];
+            float new_acc = gpd_at_least(acc_n[ki] + dj, 0.0f) * a;
+            dj = new_acc - acc_n[ki];
+            acc_n[ki] = new_acc;
+            v[2] = v[2] + c.inv_m * dj;
+            const float imp_n[3] = {0.0f, 0.0f, dj};
+            gpd_cross(arm, imp_n, t);
+            gpd_iinv_w(r, c, t, dwv);
+            w[0] = w[0] + dwv[0]; w[1] = w[1] + dwv[1]; w[2] = w[2] + dwv[2];
+            const float lim = y.mu * acc_n[ki];
+            // tangential impulses (Coulomb cone on the accumulated normal)
+#pragma unroll
+            for (int td = 0; td < 2; ++td) {
+                gpd_cross(w, arm, wxr);
+                const float vt = v[td] + wxr[td];
+                dj = -vt / kt[td][ki];
+                new_acc = gpd_clip(acc_t[td][ki] + dj, -lim, lim) * a;
+                dj = new_acc - acc_t[td][ki];
+                acc_t[td][ki] = new_acc;
+                v[td] = v[td] + c.inv_m * dj;
+                const float imp_t[3] = {td == 0 ? dj : 0.0f,
+                                        td == 0 ? 0.0f : dj, 0.0f};
+                gpd_cross(arm, imp_t, t);
+                gpd_iinv_w(r, c, t, dwv);
+                w[0] = w[0] + dwv[0]; w[1] = w[1] + dwv[1];
+                w[2] = w[2] + dwv[2];
+            }
+        }
+#pragma unroll 1
+        for (int e = 0; e < y.n_obstacles; ++e) {
+            const float* n_ = en[e];
+            const float depth = edepth[e];
+            const float a = depth > -y.slop ? 1.0f : 0.0f;
+            const float vn = v[0] * n_[0] + v[1] * n_[1] + v[2] * n_[2];
+            const float tgt = depth > 0.0f ? y.erp_dt * depth
+                                           : y.inv_dt * depth;
+            float dj = (tgt - vn) * y.m;
+            const float new_acc = gpd_at_least(eacc[e] + dj, 0.0f) * a;
+            dj = new_acc - eacc[e];
+            eacc[e] = new_acc;
+            v[0] = v[0] + dj * c.inv_m * n_[0];
+            v[1] = v[1] + dj * c.inv_m * n_[1];
+            v[2] = v[2] + dj * c.inv_m * n_[2];
+            // linear Coulomb friction; the ACCUMULATED tangential impulse
+            // is clamped to the cone mu * acc_n
+            const float vn2 = v[0] * n_[0] + v[1] * n_[1] + v[2] * n_[2];
+            const float vtx = v[0] - vn2 * n_[0];
+            const float vty = v[1] - vn2 * n_[1];
+            const float vtz = v[2] - vn2 * n_[2];
+            const float vt_norm = sqrtf(vtx * vtx + vty * vty + vtz * vtz);
+            const float j_stop = vt_norm * y.m;
+            const float new_t =
+                gpd_at_most(etan[e] + j_stop, y.mu * new_acc) * a;
+            const float dj_t = gpd_at_least(new_t - etan[e], 0.0f);
+            etan[e] = new_t;
+            const float lim_v = dj_t * c.inv_m;
+            float scale = vt_norm > 1e-9f
+                              ? gpd_at_least(vt_norm - lim_v, 0.0f)
+                                    / gpd_at_least(vt_norm, 1e-9f)
+                              : 1.0f;
+            scale = a > 0.0f ? scale : 1.0f;
+            v[0] = vtx * scale + (v[0] - vtx);
+            v[1] = vty * scale + (v[1] - vty);
+            v[2] = vtz * scale + (v[2] - vtz);
+        }
+    }
+
+    // ---- position update with the corrected velocity ----
+    s[0] = s[0] + dt * v[0];
+    s[1] = s[1] + dt * v[1];
+    s[2] = s[2] + dt * v[2];
+    // world-frame exponential-map quaternion update (left Hamilton
+    // product), kept as it is when ||w|| <= 1e-8
+    const float norm = sqrtf(w[0] * w[0] + w[1] * w[1] + w[2] * w[2]);
+    const float theta = norm * P.half_dt;
+    const float cth = cosf(theta);
+    const float safe = norm > 0.0f ? norm : 1.0f;
+    const float sth = sinf(theta) / safe;
+    const float ax = sth * w[0], ay = sth * w[1], az = sth * w[2];
+    const float qx = s[3], qy = s[4], qz = s[5], qw = s[6];
+    const float nqx = cth * qx + ax * qw + ay * qz - az * qy;
+    const float nqy = cth * qy - ax * qz + ay * qw + az * qx;
+    const float nqz = cth * qz + ax * qy - ay * qx + az * qw;
+    const float nqw = cth * qw - ax * qx - ay * qy - az * qz;
+    if (!(norm <= 1e-8f)) {
+        s[3] = nqx; s[4] = nqy; s[5] = nqz; s[6] = nqw;
+    }
+    s[7] = v[0]; s[8] = v[1]; s[9] = v[2];
+    s[10] = w[0]; s[11] = w[1]; s[12] = w[2];
+}
+
+// World point m clamped into the collision cylinder of the body at p with
+// rotation rows r.
+GPD_HD void gpd_cyl_clamp(const GpdPyb& y, const float* p, const float* r,
+                          const float* m, float* o) {
+    const float d[3] = {m[0] - p[0], m[1] - p[1], m[2] - p[2]};
+    float u[3], wq[3];
+    gpd_mtv(r, d, u);
+    const float ur = sqrtf(u[0] * u[0] + u[1] * u[1]);
+    const float sc = gpd_at_most(y.rc / gpd_at_least(ur, 1e-9f), 1.0f);
+    const float q[3] = {u[0] * sc, u[1] * sc, gpd_clip(u[2], y.z_lo, y.z_hi)};
+    gpd_mv(r, q, wq);
+    o[0] = p[0] + wq[0]; o[1] = p[1] + wq[1]; o[2] = p[2] + wq[2];
+}
+
+// Two-body effective mass along `dir` at the lever arms r_i, r_j.
+GPD_HD float gpd_keff2(const GpdStepParams& P, const float* rot_i,
+                       const float* rot_j, const float* r_i,
+                       const float* r_j, const float* dir) {
+    const float t_i = gpd_keff1(rot_i, P.drone, r_i, dir);
+    const float t_j = gpd_keff1(rot_j, P.drone, r_j, dir);
+    return P.pyb.two_inv_m + t_i + t_j;
+}
+
+// Drone-drone cylinder-manifold contact on the post-step poses: every
+// impulse is computed from the state as it stands (st is not written until
+// all pairs are done), each unordered pair once, -imp to the partner.
+GPD_HD void gpd_pyb_pairs(const GpdStepParams& P, float (*st)[GPD_PS]) {
+    const GpdDrone& c = P.drone;
+    const GpdPyb& y = P.pyb;
+    const int n = P.n_drones;
+    float acc[GPD_MAX_DRONES][6];
+#pragma unroll 1
+    for (int i = 0; i < n; ++i)
+        for (int k = 0; k < 6; ++k) acc[i][k] = 0.0f;
+#pragma unroll 1
+    for (int i = 0; i < n; ++i) {
+        const float* pi = st[i];
+        const float* vi = st[i] + 7;
+        const float* wi = st[i] + 10;
+        float rot_i[9];
+        gpd_rot_rows(st[i] + 3, rot_i);
+#pragma unroll 1
+        for (int j = i + 1; j < n; ++j) {
+            const float* pj = st[j];
+            const float* vj = st[j] + 7;
+            const float* wj = st[j] + 10;
+            float rot_j[9];
+            gpd_rot_rows(st[j] + 3, rot_j);
+            const float dx = pi[0] - pj[0], dy = pi[1] - pj[1],
+                        dz = pi[2] - pj[2];
+            const float dist = sqrtf(dx * dx + dy * dy + dz * dz);
+            const float depth = y.min_d - dist;
+            const float hitm =
+                ((depth > -y.slop) & (dist > 1e-6f)) ? 1.0f : 0.0f;
+            const float inv_d = 1.0f / gpd_at_least(dist, 1e-6f);
+            const float nv[3] = {dx * inv_d, dy * inv_d, dz * inv_d};
+            const float mid[3] = {0.5f * (pi[0] + pj[0]),
+                                  0.5f * (pi[1] + pj[1]),
+                                  0.5f * (pi[2] + pj[2])};
+            float si[3], sj[3];
+            gpd_cyl_clamp(y, pi, rot_i, mid, si);
+            gpd_cyl_clamp(y, pj, rot_j, mid, sj);
+            const float r_i[3] = {0.5f * (si[0] + sj[0]) - pi[0],
+                                  0.5f * (si[1] + sj[1]) - pi[1],
+                                  0.5f * (si[2] + sj[2]) - pi[2]};
+            const float r_j[3] = {0.5f * (si[0] + sj[0]) - pj[0],
+                                  0.5f * (si[1] + sj[1]) - pj[1],
+                                  0.5f * (si[2] + sj[2]) - pj[2]};
+            float wxr_i[3], wxr_j[3];
+            gpd_cross(wi, r_i, wxr_i);
+            gpd_cross(wj, r_j, wxr_j);
+            const float rel[3] = {vi[0] + wxr_i[0] - vj[0] - wxr_j[0],
+                                  vi[1] + wxr_i[1] - vj[1] - wxr_j[1],
+                                  vi[2] + wxr_i[2] - vj[2] - wxr_j[2]};
+            const float vn = gpd_dot3(rel, nv);
+            const float tgt = depth > 0.0f ? y.erp_dt * depth
+                                           : y.inv_dt * depth;
+            const float j_n = gpd_at_least(tgt - vn, 0.0f)
+                              / gpd_keff2(P, rot_i, rot_j, r_i, r_j, nv)
+                              * hitm;
+            const float vtv[3] = {rel[0] - vn * nv[0], rel[1] - vn * nv[1],
+                                  rel[2] - vn * nv[2]};
+            const float vt_n = sqrtf(gpd_dot3(vtv, vtv));
+            const float inv_vt = 1.0f / gpd_at_least(vt_n, 1e-9f);
+            const float tv[3] = {vtv[0] * inv_vt, vtv[1] * inv_vt,
+                                 vtv[2] * inv_vt};
+            const float j_t =
+                gpd_at_most(vt_n / gpd_keff2(P, rot_i, rot_j, r_i, r_j, tv),
+                            y.mu * j_n) * hitm;
+            const float imp[3] = {j_n * nv[0] - j_t * tv[0],
+                                  j_n * nv[1] - j_t * tv[1],
+                                  j_n * nv[2] - j_t * tv[2]};
+            const float imp_n[3] = {-imp[0], -imp[1], -imp[2]};
+            float t[3], dwi[3], dwj[3];
+            gpd_cross(r_i, imp, t);
+            gpd_iinv_w(rot_i, c, t, dwi);
+            gpd_cross(r_j, imp_n, t);
+            gpd_iinv_w(rot_j, c, t, dwj);
+#pragma unroll
+            for (int k = 0; k < 3; ++k) {
+                acc[i][k] = acc[i][k] + imp[k];
+                acc[i][3 + k] = acc[i][3 + k] + dwi[k];
+                acc[j][k] = acc[j][k] + imp_n[k];
+                acc[j][3 + k] = acc[j][3 + k] + dwj[k];
+            }
+        }
+    }
+#pragma unroll 1
+    for (int i = 0; i < n; ++i) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+            st[i][7 + k] = st[i][7 + k] + c.inv_m * acc[i][k];
+            st[i][10 + k] = st[i][10 + k] + acc[i][3 + k];
+        }
+    }
+}
+
+// One coupled PYB substep for every drone of the env: the counterpart of
+// the TPU kernels' `_pyb_substep_all`.  st[d] = [p3 q4 v3 w3] is updated in
+// place.  Each drone's forces need only its own pre-substep state and the
+// PRE-substep positions of the others (downwash), so the downwash sums are
+// taken first and the drones are then stepped one after the other; the
+// drone-drone contact follows on the post-step poses of all.
+GPD_HD void gpd_pyb_substep_all(const GpdStepParams& P, float (*st)[GPD_PS],
+                                const float (*rpm)[4],
+                                const float (*drag_rpm)[4]) {
+    const GpdPyb& y = P.pyb;
+    const int n = P.n_drones;
+    const bool has_dw = y.dw && n > 1;
+    float dw_total[GPD_MAX_DRONES];
+    if (has_dw) {
+#pragma unroll 1
+        for (int di = 0; di < n; ++di) {
+            float total = 0.0f;
+#pragma unroll 1
+            for (int si = 0; si < n; ++si) {
+                if (si == di) continue;
+                const float dz = st[si][2] - st[di][2];
+                const float dx = st[si][0] - st[di][0];
+                const float dy = st[si][1] - st[di][1];
+                const float dxy = sqrtf(dx * dx + dy * dy);
+                const bool mask = (dz > 0.0f) & (dxy < 10.0f);
+                const float safe_dz = mask ? dz : 1.0f;
+                const float q = y.prop_radius / (4.0f * safe_dz);
+                const float alpha = y.dw1 * (q * q);
+                const float beta = y.dw2 * safe_dz + y.dw3;
+                const float u = dxy / beta;
+                const float mag = alpha * expf(-0.5f * (u * u));
+                total = total + (mask ? mag : 0.0f);
+            }
+            dw_total[di] = total;
+        }
+    }
+#pragma unroll 1
+    for (int d = 0; d < n; ++d)
+        gpd_pyb_drone_substep(P, st[d], rpm[d], drag_rpm[d],
+                              has_dw ? dw_total[d] : 0.0f, has_dw);
+    if (n > 1) gpd_pyb_pairs(P, st);
 }
 
 // Running sums of a task's row_post over the drones of one env.

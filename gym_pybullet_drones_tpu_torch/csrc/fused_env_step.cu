@@ -1,11 +1,12 @@
 // fused_env_step: the whole env control step in one launch.
 //
 // Hopper counterpart of the Pallas TPU kernel ops/pallas_fused.py:
-// fused_env_step, for DYN physics with every action type (RPM, ONE_D_RPM
-// and the PID family PID / VEL / ONE_D_PID, whose embedded DSL-PID ticks
-// in-kernel) and the Hover / MultiHover / Routing tasks.  One thread per
-// env; rows are drone-major and the env index is the contiguous one, so
-// every load and store is coalesced.
+// fused_env_step, for every physics mode (DYN and the PYB family) with
+// every action type (RPM, ONE_D_RPM and the PID family PID / VEL /
+// ONE_D_PID, whose embedded DSL-PID ticks in-kernel) and the Hover /
+// MultiHover / Routing tasks.  One thread per env; rows are drone-major and
+// the env index is the contiguous one, so every load and store is
+// coalesced.
 //
 //   carry (RC, B): per drone [state16 | last_rpm4 | pid9 (PID family only)
 //                  | history buf_rows], then the substep-counter row (float)
@@ -21,9 +22,33 @@
 // the SELECTED state; routing's extra rows (goal vector, nearest neighbour)
 // follow from the selected positions of all drones.  The history ring moves
 // through memory row by row, never through registers.
+//
+// Under the PYB family the drones of an env are coupled (downwash,
+// drone-drone contact), so pass 1 splits: every drone's action becomes rpm
+// first, the live state of ALL drones (13 floats each: the world ang_v rows
+// are carried state here, last_rpm feeds the stale drag of substep 0, the
+// rpy_rates rows pass through) waits in per-thread local arrays while
+// gpd_pyb_substep_all runs the substeps, and the parking and the task sums
+// follow.  Pass 2 is the same for both families.
 #include <cuda_runtime.h>
 
 #include "drone_kernels.cuh"
+
+// One stepped drone's share of the task's sums: s = [p3 q4 ...], v = its
+// stepped velocity.
+static __device__ __forceinline__ void fused_post_drone(
+    const GpdStepParams& p, int d, const float* s, const float* v,
+    GpdPostAcc& acc) {
+    float roll, pitch, yaw;
+    gpd_quat_rpy(s[3], s[4], s[5], s[6], roll, pitch, yaw);
+    if (p.task_id == GPD_TASK_HOVER)
+        gpd_hover_row_post(p, d, s[0], s[1], s[2], roll, pitch, acc);
+    else if (p.task_id == GPD_TASK_MULTIHOVER)
+        gpd_multihover_row_post(p, d, s[0], s[1], s[2], roll, pitch, acc);
+    else
+        gpd_routing_row_post(p, d, s[0], s[1], s[2], v[0], v[1], v[2], roll,
+                             pitch, acc);
+}
 
 __global__ void fused_env_step_kernel(const float* __restrict__ carry,
                                       const float* __restrict__ act,
@@ -42,6 +67,10 @@ __global__ void fused_env_step_kernel(const float* __restrict__ carry,
 #define AT(ptr, row) (ptr)[(size_t)(row) * ld + col]
 
     // ---- pass 1: action -> rpm, physics, task sums ----
+    const bool pyb = p.pyb.enabled != 0;
+    const bool drag = pyb && p.pyb.drag != 0;
+    float st[GPD_MAX_DRONES][GPD_PS];
+    float rpms[GPD_MAX_DRONES][4], last[GPD_MAX_DRONES][4];
     GpdPostAcc acc;
     gpd_post_init(acc);
     for (int d = 0; d < n; ++d) {
@@ -69,6 +98,25 @@ __global__ void fused_env_step_kernel(const float* __restrict__ carry,
 #pragma unroll
         for (int k = 0; k < GPD_LR; ++k) AT(carry_out, base + GPD_S + k) = rpm[k];
 
+        if (pyb) {
+            // coupled physics: hold the live state until all drones have
+            // their rpm; rpy_rates pass through
+#pragma unroll
+            for (int k = 0; k < 4; ++k) rpms[d][k] = rpm[k];
+#pragma unroll
+            for (int k = 0; k < 10; ++k) st[d][k] = s[k];
+#pragma unroll
+            for (int k = 0; k < 3; ++k) {
+                st[d][10 + k] = AT(carry, base + 13 + k);
+                AT(carry_out, base + 10 + k) = s[10 + k];
+            }
+            if (drag) {
+#pragma unroll
+                for (int k = 0; k < GPD_LR; ++k)
+                    last[d][k] = AT(carry, base + GPD_S + k);
+            }
+            continue;
+        }
         float thrust, xt, yt, zt;
         gpd_motor_mix(p.drone, rpm[0], rpm[1], rpm[2], rpm[3], thrust, xt,
                       yt, zt);
@@ -76,16 +124,25 @@ __global__ void fused_env_step_kernel(const float* __restrict__ carry,
                          xt, yt, zt);
 #pragma unroll
         for (int k = 0; k < GPD_S; ++k) AT(carry_out, base + k) = s[k];
-
-        float roll, pitch, yaw;
-        gpd_quat_rpy(s[3], s[4], s[5], s[6], roll, pitch, yaw);
-        if (p.task_id == GPD_TASK_HOVER)
-            gpd_hover_row_post(p, d, s[0], s[1], s[2], roll, pitch, acc);
-        else if (p.task_id == GPD_TASK_MULTIHOVER)
-            gpd_multihover_row_post(p, d, s[0], s[1], s[2], roll, pitch, acc);
-        else
-            gpd_routing_row_post(p, d, s[0], s[1], s[2], s[7], s[8], s[9],
-                                 roll, pitch, acc);
+        fused_post_drone(p, d, s, s + 7, acc);
+    }
+    if (pyb) {
+        // the drag of substep 0 uses the previous control step's rpm (zero
+        // after an auto-reset), later substeps the new one
+#pragma unroll 1
+        for (int i = 0; i < p.n_substeps; ++i)
+            gpd_pyb_substep_all(p, st, rpms, (drag && i == 0) ? last : rpms);
+#pragma unroll 1
+        for (int d = 0; d < n; ++d) {
+            const int base = d * per_drone;
+            const float* s = st[d];
+#pragma unroll
+            for (int k = 0; k < 10; ++k) AT(carry_out, base + k) = s[k];
+#pragma unroll
+            for (int k = 0; k < 3; ++k)
+                AT(carry_out, base + 13 + k) = s[10 + k];
+            fused_post_drone(p, d, s, s + 7, acc);
+        }
     }
     if (p.task_id == GPD_TASK_ROUTING)
         gpd_routing_pairs(p, carry_out + col, (size_t)ld, per_drone, acc);

@@ -1,4 +1,4 @@
-"""Functional environment core: config, state, reset/step (DYN physics).
+"""Functional environment core: config, state, reset/step.
 
 Counterpart of the JAX package's `envs/core.py`.  An environment is a pure
 function over a NamedTuple of tensors:
@@ -15,10 +15,14 @@ Stepping semantics parity (reference BaseAviary.py:339-383):
 - preprocess action once per control step,
 - PYB_STEPS_PER_CTRL = pyb_freq // ctrl_freq physics substeps,
 - obs/reward/terminated/truncated computed once per control step,
+- `last_rpm` updated at the END of each substep, so the drag model's first
+  substep uses the previous control step's rpm (reference :359,372),
 - step_counter advances by PYB_STEPS_PER_CTRL, AFTER the hooks ran.
 
-Only `Physics.DYN` is ported; the PYB family (aero effects, PGS contact)
-is ROADMAP.md queue 1 item 11 and raises NotImplementedError until then.
+Every physics mode runs here: the explicit DYN integrator
+(`ops/dynamics.py`) and the PYB family, the Bullet-like integrator with
+ground, obstacle and drone-drone contact (`ops/rigid_body.py`) under the
+aero effects its mode names (`ops/aero.py`).
 """
 from __future__ import annotations
 
@@ -30,8 +34,10 @@ import torch
 from gym_pybullet_drones_tpu_torch.params import DroneParams
 from gym_pybullet_drones_tpu_torch.utils.device import resolve_device
 from gym_pybullet_drones_tpu_torch.utils.enums import Physics
-from gym_pybullet_drones_tpu_torch.ops import quat as quat_ops
+from gym_pybullet_drones_tpu_torch.ops import aero, quat as quat_ops
 from gym_pybullet_drones_tpu_torch.ops.dynamics import DynState, dyn_step
+from gym_pybullet_drones_tpu_torch.ops.rigid_body import (
+    PybState, pyb_step, resolve_drone_collisions)
 from gym_pybullet_drones_tpu_torch.control import dsl_pid
 
 
@@ -71,8 +77,7 @@ class AviaryConfig:
     """Static environment configuration (hashable).
 
     Mirrors the reference constructor surface (BaseAviary.py:25-40) minus the
-    GUI/recording options.  `obstacles` and `solver_iterations` belong to
-    the PYB-family modes and are carried for API parity only.
+    GUI/recording options.
     """
 
     drone: DroneParams
@@ -84,7 +89,15 @@ class AviaryConfig:
     # initial poses as nested tuples (hashable); None -> reference default grid
     init_xyzs: tuple | None = None
     init_rpys: tuple | None = None
+    # static obstacles: (x, y, z, radius) = sphere, (x, y, z, hx, hy, hz) =
+    # axis-aligned box (center + half extents).  Collision in the PYB-family
+    # modes (the reference's obstacle bodies, BaseAviary:955-978, approximated
+    # by their bounding primitives)
     obstacles: tuple = ()
+    # PGS contact-solver sweep count (PYB-family modes).  4 (default) is
+    # converged for single-island contacts; PyBullet's numSolverIterations
+    # default is 50.  Every entry point takes any value: the kernels loop
+    # over the sweeps at run time.
     solver_iterations: int = 4
 
     def __post_init__(self):
@@ -122,13 +135,6 @@ class AviaryConfig:
         if self.init_rpys is not None:
             return torch.tensor(self.init_rpys, dtype=dtype, device=device)
         return torch.zeros((self.num_drones, 3), dtype=dtype, device=device)
-
-
-def require_dyn(cfg: AviaryConfig) -> None:
-    if cfg.physics != Physics.DYN:
-        raise NotImplementedError(
-            f"{cfg.physics}: only Physics.DYN is ported; the PYB family is "
-            "ROADMAP.md queue 1 item 11 (ops/aero.py + ops/rigid_body.py)")
 
 
 def state_vector(state: EnvState) -> torch.Tensor:
@@ -185,13 +191,48 @@ def next_waypoint(current_position: torch.Tensor, destination: torch.Tensor,
 
 def _apply_physics_substep(cfg: AviaryConfig, state: EnvState,
                            rpm: torch.Tensor) -> EnvState:
-    """One physics substep (reference :349-372), general dtype."""
-    dyn = DynState(pos=state.pos, quat=state.quat, vel=state.vel,
-                   rpy_rates=state.rpy_rates, ang_v=state.ang_v)
-    out = dyn_step(cfg.drone, dyn, rpm, cfg.pyb_dt)
-    return state._replace(pos=out.pos, quat=out.quat, vel=out.vel,
-                          rpy_rates=out.rpy_rates, ang_v=out.ang_v,
-                          last_rpm=rpm)
+    """One physics substep in the configured mode (reference :349-372),
+    general dtype."""
+    d = cfg.drone
+    dt = cfg.pyb_dt
+    mode = cfg.physics
+    if mode == Physics.DYN:
+        dyn = DynState(pos=state.pos, quat=state.quat, vel=state.vel,
+                       rpy_rates=state.rpy_rates, ang_v=state.ang_v)
+        out = dyn_step(d, dyn, rpm, dt)
+        return state._replace(pos=out.pos, quat=out.quat, vel=out.vel,
+                              rpy_rates=out.rpy_rates, ang_v=out.ang_v,
+                              last_rpm=rpm)
+
+    # PYB family: compose aero effects as external force/torque about CoM.
+    rot = quat_ops.quat_to_mat(state.quat)
+    ext_f = torch.zeros_like(state.pos)
+    ext_t = torch.zeros_like(state.pos)
+    if mode in (Physics.PYB_GND, Physics.PYB_GND_DRAG_DW):
+        rpy = quat_ops.quat_to_rpy(state.quat)
+        f, t = aero.ground_effect(d, rpm, state.pos, rot, rpy)
+        ext_f, ext_t = ext_f + f, ext_t + t
+    if mode in (Physics.PYB_DRAG, Physics.PYB_GND_DRAG_DW):
+        # stale-action semantics: previous substep's rpm (reference :359)
+        f, t = aero.drag(d, state.last_rpm, state.vel, rot)
+        ext_f, ext_t = ext_f + f, ext_t + t
+    if mode in (Physics.PYB_DW, Physics.PYB_GND_DRAG_DW):
+        f, t = aero.downwash(d, state.pos, rot)
+        ext_f, ext_t = ext_f + f, ext_t + t
+
+    pyb = PybState(pos=state.pos, quat=state.quat, vel=state.vel,
+                   ang_v=state.ang_v)
+    out = pyb_step(d, pyb, rpm, dt, ext_force=ext_f, ext_torque=ext_t,
+                   obstacles=cfg.obstacles,
+                   solver_iterations=cfg.solver_iterations)
+    pos, vel, ang_v = out.pos, out.vel, out.ang_v
+    if cfg.num_drones > 1:
+        # Bullet resolves drone-drone contact in all PYB* modes (every
+        # drone lives in one world, reference BaseAviary.py:484-491)
+        pos, vel, ang_v = resolve_drone_collisions(
+            d, pos, vel, dt, quat=out.quat, ang_v=ang_v)
+    return state._replace(pos=pos, quat=out.quat, vel=vel,
+                          ang_v=ang_v, last_rpm=rpm)
 
 
 def reset(cfg: AviaryConfig, task, dtype=torch.float32, device=None):
@@ -201,7 +242,6 @@ def reset(cfg: AviaryConfig, task, dtype=torch.float32, device=None):
     BaseAviary.py:243).  A task with reset noise is refused: randomized
     resets are not ported yet.
     """
-    require_dyn(cfg)
     if any(getattr(task, f, 0.0) for f in
            ("reset_pos_noise", "reset_rpy_noise", "reset_vel_noise")):
         raise NotImplementedError("randomized resets are not ported yet")
@@ -230,7 +270,6 @@ def step(cfg: AviaryConfig, task, state: EnvState, action: torch.Tensor):
 
     Control-flow parity with reference BaseAviary.step (:259-383).
     """
-    require_dyn(cfg)
     action = torch.as_tensor(action, dtype=state.pos.dtype,
                              device=state.pos.device)
     rpm, state = task.preprocess_action(cfg, state, action)

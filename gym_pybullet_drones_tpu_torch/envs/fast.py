@@ -4,10 +4,12 @@ Counterpart of the JAX package's `envs/fast.py`, the throughput
 configuration used by benchmarks and large-scale training.  Two entry points:
 
 - `make_batched_step`: an inspectable `EnvState` carry with the (env,
-  drone) axes collapsed, leaves (B*N, k).  The DYN physics of a whole
-  control step is ONE kernel launch over the flattened batch
-  (`ops/kernel_dyn.py`; for the PID-family actions the embedded DSL-PID
-  tick and the physics together, `ops/kernel_pid.py`); the task logic
+  drone) axes collapsed, leaves (B*N, k).  The physics of a whole control
+  step is ONE kernel launch over the flattened batch: for DYN
+  `ops/kernel_dyn.py` (for the PID-family actions the embedded DSL-PID
+  tick and the physics together, `ops/kernel_pid.py`), for the PYB family
+  `ops/kernel_env.py`, one thread per env, with or without the PID tick;
+  the task logic
   (action mapping or PID setpoints, obs, reward, termination, auto-reset)
   is tensor code on the same flat leaves via the tasks' `_map_to_rpm` /
   `_pid_targets` / `flat_post` hooks.  Deterministic tasks auto-reset to a
@@ -27,12 +29,13 @@ import torch
 
 from gym_pybullet_drones_tpu_torch.envs import core
 from gym_pybullet_drones_tpu_torch.ops import (
-    kernel_dyn, kernel_fused, kernel_pid)
+    kernel_dyn, kernel_env, kernel_fused, kernel_pid)
 from gym_pybullet_drones_tpu_torch.ops.dynamics import DynState
 from gym_pybullet_drones_tpu_torch.ops.kernel_fused import PID_FAMILY
 from gym_pybullet_drones_tpu_torch.params import CF2X
 from gym_pybullet_drones_tpu_torch.utils.device import resolve_device
-from gym_pybullet_drones_tpu_torch.utils.enums import ObservationType
+from gym_pybullet_drones_tpu_torch.utils.enums import (
+    ObservationType, Physics)
 
 _NOISE_FIELDS = ("reset_pos_noise", "reset_rpy_noise", "reset_vel_noise")
 
@@ -58,16 +61,17 @@ def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
     step_fn(state, action (B, N, A)) -> (state, obs, reward, term, trunc)
     with per-env leading axes on the outputs (reward/term/trunc (B,)).
 
-    The state is float32 and every control step goes through ONE kernel:
-    `pid_dyn_ctrl_step` for a task with PID-family actions, `dyn_ctrl_step`
-    otherwise (float64 parity runs use `core.step`).
+    The state is float32 and every control step goes through ONE kernel.
+    DYN physics: `pid_dyn_ctrl_step` for a task with PID-family actions,
+    `dyn_ctrl_step` otherwise.  The PYB family: `env_ctrl_step`, with the
+    PID tick in-kernel for PID-family actions, for any
+    `cfg.solver_iterations`.  (float64 parity runs use `core.step`.)
 
     obs_layout: "drone" -> obs (B, N, D) (reference per-drone layout);
     "flat" -> obs (B, N*D).
     """
     if obs_layout not in ("drone", "flat"):
         raise ValueError(f"unknown obs_layout {obs_layout!r}")
-    core.require_dyn(cfg)
     if any(getattr(task, f, 0.0) for f in _NOISE_FIELDS):
         raise NotImplementedError("randomized resets are not ported yet")
     device = resolve_device(device)
@@ -95,13 +99,27 @@ def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
         # deterministic: the seed is accepted for API parity and unused
         return init_flat, _finalize_obs(init_obs_flat)
 
+    pyb = cfg.physics != Physics.DYN
+
+    def _env_step(pid_params, dyn, ctrl_state, action_rows, last_rpm):
+        """The PYB family: all drones of an env in one thread."""
+        return kernel_env.env_ctrl_step(
+            pid_params, cfg.drone, cfg.physics, n, cfg.steps_per_ctrl,
+            cfg.pyb_dt, cfg.ctrl_dt, cfg.obstacles, dyn, ctrl_state,
+            action_rows, last_rpm, want_obs12, cfg.solver_iterations)
+
     def _physics(flat: core.EnvState, flat_rpm: torch.Tensor):
         """Advance the physics on the flat carry -> (state, obs12 | None)."""
         dyn = DynState(pos=flat.pos, quat=flat.quat, vel=flat.vel,
                        rpy_rates=flat.rpy_rates, ang_v=flat.ang_v)
-        out = kernel_dyn.dyn_ctrl_step(cfg.drone, dyn, cfg.steps_per_ctrl,
-                                       cfg.pyb_dt, flat_rpm, want_obs12)
-        out, obs12 = out if want_obs12 else (out, None)
+        if pyb:
+            out, _, _, *obs12 = _env_step(None, dyn, None, flat_rpm,
+                                          flat.last_rpm)
+            obs12 = obs12[0] if obs12 else None
+        else:
+            out = kernel_dyn.dyn_ctrl_step(cfg.drone, dyn, cfg.steps_per_ctrl,
+                                           cfg.pyb_dt, flat_rpm, want_obs12)
+            out, obs12 = out if want_obs12 else (out, None)
         return flat._replace(
             pos=out.pos, quat=out.quat, vel=out.vel,
             rpy_rates=out.rpy_rates, ang_v=out.ang_v,
@@ -113,9 +131,14 @@ def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
         tp, trpy, tv, trr = task._pid_targets(cfg, flat, a)
         dyn = DynState(pos=flat.pos, quat=flat.quat, vel=flat.vel,
                        rpy_rates=flat.rpy_rates, ang_v=flat.ang_v)
-        out, new_pid, rpm, *obs12 = kernel_pid.pid_dyn_ctrl_step(
-            CF2X, cfg.drone, dyn, flat.ctrl_state, cfg.steps_per_ctrl,
-            cfg.pyb_dt, cfg.ctrl_dt, tp, trpy, tv, trr, want_obs12)
+        if pyb:
+            out, new_pid, rpm, *obs12 = _env_step(
+                CF2X, dyn, flat.ctrl_state,
+                torch.cat([tp, trpy, tv, trr], dim=-1), flat.last_rpm)
+        else:
+            out, new_pid, rpm, *obs12 = kernel_pid.pid_dyn_ctrl_step(
+                CF2X, cfg.drone, dyn, flat.ctrl_state, cfg.steps_per_ctrl,
+                cfg.pyb_dt, cfg.ctrl_dt, tp, trpy, tv, trr, want_obs12)
         return flat._replace(
             pos=out.pos, quat=out.quat, vel=out.vel,
             rpy_rates=out.rpy_rates, ang_v=out.ang_v,
@@ -162,8 +185,9 @@ def fused_spec(cfg: core.AviaryConfig, task) -> kernel_fused.FusedSpec:
     Eligibility (raises ValueError): KIN observations, any action type
     (PID-family actions carry the embedded DSL-PID state as 9 extra
     in-kernel rows per drone), deterministic resets, a task implementing
-    `row_post` (and optionally `row_extra_obs`), at most 8 drones.  Physics
-    modes other than DYN raise NotImplementedError.
+    `row_post` (and optionally `row_extra_obs`), at most 8 drones and 8
+    obstacles.  DYN and all PYB-family physics modes are supported (sphere
+    and box obstacles included), with any `cfg.solver_iterations`.
     """
     if getattr(task, "obs", None) != ObservationType.KIN:
         raise ValueError("fused rollout requires KIN observations")

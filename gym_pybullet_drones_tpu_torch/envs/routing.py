@@ -252,9 +252,8 @@ def make_routing_config(num_drones: int = 4, spacing: float = 0.5,
                         ctrl_freq: int = 30):
     """Convenience: a line of drones routed to reversed goal positions.
 
-    The default physics is PYB, as in the JAX package; only `Physics.DYN`
-    is ported so far, and the entry points raise NotImplementedError for
-    the PYB family (ROADMAP.md queue 1 item 11).
+    The default physics is PYB, as in the JAX package: the drones collide
+    with the ground and with each other.
     """
     inits = tuple((i * spacing, 0.0, 0.3) for i in range(num_drones))
     dests = tuple(((num_drones - 1 - i) * spacing, 1.5, 1.0)

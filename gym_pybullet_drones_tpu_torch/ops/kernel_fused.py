@@ -3,12 +3,11 @@ history ring, physics, task reward/termination, auto-reset and observation
 assembly — with the rollout carry held as ONE packed row block.
 
 Replaces the TPU kernel `gym_pybullet_drones_tpu/ops/pallas_fused.py:
-fused_env_step` (body `_kernel`) for `Physics.DYN` with every action type
-(RPM, ONE_D_RPM, and the PID family PID / VEL / ONE_D_PID, whose embedded
-DSL-PID ticks in-kernel and carries 9 extra rows per drone) and the Hover /
-MultiHover / Routing tasks.  Source: `csrc/fused_env_step.cu`, device
-functions in `csrc/drone_kernels.cuh`.  Its PYB physics specialisation is
-still to port (ROADMAP.md queue 2, K2 (d)).
+fused_env_step` (body `_kernel`) for every physics mode (`Physics.DYN` and
+the PYB family) with every action type (RPM, ONE_D_RPM, and the PID family
+PID / VEL / ONE_D_PID, whose embedded DSL-PID ticks in-kernel and carries 9
+extra rows per drone) and the Hover / MultiHover / Routing tasks.  Source:
+`csrc/fused_env_step.cu`, device functions in `csrc/drone_kernels.cuh`.
 
     carry (RC, B):  per drone [pos3 quat4 vel3 rpy_rates3 ang_v3]
                     [last_rpm4] [pid9, PID family only]
@@ -45,6 +44,19 @@ the kernel takes B and the row stride and masks its tail.  All constants
 targets, box limits, episode length) arrive in one by-value struct, so one
 build serves every configuration.
 
+Under the PYB family the physics is the coupled substep of
+`ops/kernel_env.py` (device function `gpd_pyb_substep_all`, the same one
+`csrc/env_ctrl_step.cu` calls): every drone's action becomes rpm first, all
+drones' live state waits in per-thread local arrays through the substeps,
+then the parking, the task sums and pass 2 follow as for DYN.  There the
+step also reads the `last_rpm` rows (the stale drag of substep 0; zero
+after an auto-reset) and the world `ang_v` rows, which are carried state;
+the `rpy_rates` rows pass through.  What bounds that branch is operations,
+not bytes: around 3,000 per drone and substep, in one thread's dependent
+chain.  It is a run-time branch of the one kernel.  `cfg.solver_iterations`
+is a run-time value of the struct: any sweep count `envs/core.step` takes
+runs here as well.
+
 `fused_env_step_plain` is the same row arithmetic in plain PyTorch.  The
 wrapper uses it only for tensors that lie on the CPU; on a CUDA tensor it
 launches the kernel or raises.
@@ -65,7 +77,7 @@ from gym_pybullet_drones_tpu_torch.utils.device import resolve_device
 from gym_pybullet_drones_tpu_torch.utils.enums import ActionType, Physics
 from gym_pybullet_drones_tpu_torch.params import CF2X
 from gym_pybullet_drones_tpu_torch.ops import (
-    kernel_dyn, kernel_math, kernel_pid)
+    kernel_dyn, kernel_env, kernel_math, kernel_pid)
 from gym_pybullet_drones_tpu_torch.ops.kernel_dyn import check_rows
 
 S = 16    # state rows per drone
@@ -118,15 +130,14 @@ class FusedSpec:
     init16: tuple           # per drone, the 16 reset-state values
 
     def __post_init__(self):
-        cfg, task = self.cfg, self.task
-        if cfg.physics != Physics.DYN:
-            raise NotImplementedError(
-                f"{cfg.physics}: the fused kernel's PYB branch is "
-                "ROADMAP.md queue 2, K2 (d)")
-        _layout(self.n, self.buf_rows, task.act)
+        _layout(self.n, self.buf_rows, self.task.act)
         if not 1 <= self.n <= _build.MAX_DRONES:
             raise ValueError(
                 f"the fused kernel takes 1..{_build.MAX_DRONES} drones")
+        if len(self.cfg.obstacles) > kernel_env.MAX_OBSTACLES:
+            raise ValueError(
+                f"the fused kernel takes at most {kernel_env.MAX_OBSTACLES} "
+                f"obstacles, got {len(self.cfg.obstacles)}")
         if len(self.init16) != self.n or \
                 any(len(r) != S for r in self.init16):
             raise ValueError("init16 must hold 16 values per drone")
@@ -173,6 +184,8 @@ def _step_params(spec: FusedSpec) -> _build.StepParams:
                                  cfg.pyb_dt)
     # the embedded controller is always CF2X (reference BaseRLAviary.py:76)
     kernel_pid.fill_pid_params(sp, CF2X, cfg.ctrl_dt)
+    kernel_env.fill_pyb_params(sp, cfg.drone, cfg.physics, cfg.pyb_dt,
+                               cfg.obstacles, cfg.solver_iterations)
     sp.n_drones, sp.act_dim, sp.buf_rows = spec.n, spec.act_dim, spec.buf_rows
     sp.act_type, sp.task_id = _ACT_IDS[task.act], rc.task_id
     sp.n_extra = spec.n_extra
@@ -240,10 +253,11 @@ def fused_env_step_plain(spec: FusedSpec, carry: torch.Tensor,
     buf_off = pid_off + (PR if has_pid else 0)
 
     # ---- action mapping + buffer shift + physics ----
-    stepped, new_bufs, new_pids, rpms = [], [], [], []
+    pyb = cfg.physics != Physics.DYN
+    stepped, new_bufs, new_pids, rpms, lasts = [], [], [], [], []
     for d in range(n):
         base = d * per_drone
-        st = [carry[base + k] for k in range(13)]
+        st = [carry[base + k] for k in range(S if pyb else 13)]
         a = action_rows[d * act_dim:(d + 1) * act_dim]
         if act == ActionType.RPM:
             rpm = [hover * (1.0 + 0.05 * a[k]) for k in range(4)]
@@ -261,10 +275,19 @@ def fused_env_step_plain(spec: FusedSpec, carry: torch.Tensor,
         # history ring: oldest first (reference BaseRLAviary.py:66-67)
         buf = carry[base + buf_off:base + buf_off + buf_rows]
         new_bufs.append(torch.cat([buf[act_dim:], a]) if buf_rows else buf)
+        if pyb:
+            # PYB family: coupled, stepped below once every drone has rpm
+            stepped.append(st)
+            lasts.append(list(carry[base + S:base + S + LR]))
+            continue
         thrust, xt, yt, zt = kernel_dyn.motor_mix_rows(params, *rpm)
         stepped.append(kernel_dyn.dyn_substeps_rows(
             params, cfg.steps_per_ctrl, cfg.pyb_dt, tuple(st),
             thrust, xt, yt, zt))
+    if pyb:
+        stepped = kernel_env.pyb_ctrl_step_rows(
+            params, cfg.physics, cfg.steps_per_ctrl, cfg.pyb_dt,
+            cfg.obstacles, stepped, rpms, lasts, cfg.solver_iterations)
 
     # ---- task post on the stepped rows ----
     sc_row = carry[n * per_drone]

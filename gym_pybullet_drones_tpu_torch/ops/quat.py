@@ -1,8 +1,8 @@
 """Batched quaternion / rotation math on torch tensors.
 
-Counterpart of the JAX package's `ops/quat.py` for the functions the DYN
-rollout path and the DSL-PID controller need (`quat_mul`, `rotate_vector`
-and the world-frame integrator arrive with the PYB physics).
+Counterpart of the JAX package's `ops/quat.py`: what the DYN rollout
+path and the DSL-PID controller need, and the Hamilton product, vector
+rotation and world-frame integrator of the PYB physics.
 
 Conventions:
 - Quaternions are `xyzw` (PyBullet's layout), stored in the last axis.
@@ -105,6 +105,37 @@ def euler_xyz_to_quat(e: torch.Tensor) -> torch.Tensor:
     return torch.stack([x, y, z, w], dim=-1)
 
 
+def quat_mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of xyzw quaternions (rotation q1 followed-by-local
+    q2)."""
+    x1, y1, z1, w1 = q1[..., 0], q1[..., 1], q1[..., 2], q1[..., 3]
+    x2, y2, z2, w2 = q2[..., 0], q2[..., 1], q2[..., 2], q2[..., 3]
+    return torch.stack(
+        [
+            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+            w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+            w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        ],
+        dim=-1,
+    )
+
+
+def quat_conj(q: torch.Tensor) -> torch.Tensor:
+    """Conjugate of an xyzw quaternion."""
+    return q * torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype,
+                            device=q.device)
+
+
+def rotate_vector(v: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Rotate vector(s) v by xyzw quaternion(s) q (active rotation)."""
+    qv = q[..., :3]
+    w = q[..., 3:4]
+    qv, v = torch.broadcast_tensors(qv, v)
+    t = 2.0 * torch.linalg.cross(qv, v)
+    return v + w * t + torch.linalg.cross(qv, t)
+
+
 def integrate_quat(q: torch.Tensor, omega: torch.Tensor,
                    dt: float) -> torch.Tensor:
     """Exact exponential-map quaternion integration with BODY rates.
@@ -131,3 +162,21 @@ def integrate_quat(q: torch.Tensor, omega: torch.Tensor,
     new_q = torch.stack([nx, ny, nz, nw], dim=-1)
     keep = (omega_norm <= 1e-8)[..., None]
     return torch.where(keep, q, new_q)
+
+
+def integrate_quat_world(q: torch.Tensor, omega_world: torch.Tensor,
+                         dt: float) -> torch.Tensor:
+    """Exponential-map integration with a WORLD-frame angular velocity.
+
+    q' = exp(omega_world * dt) (x) q  (left Hamilton product), the update
+    Bullet's integrator applies to base orientations.  `integrate_quat`
+    above is the BODY-rate (right-multiply) variant used by the explicit
+    DYN mode.
+    """
+    norm = torch.linalg.norm(omega_world, dim=-1, keepdim=True)
+    theta = norm * dt / 2
+    safe = torch.where(norm > 0, norm, 1.0)
+    axis = omega_world / safe
+    rot = torch.cat([torch.sin(theta) * axis, torch.cos(theta)], dim=-1)
+    out = quat_mul(rot, q)
+    return torch.where(norm <= 1e-8, q, out)

@@ -117,18 +117,37 @@ def test_step_autoreset_batched_matches_jax_vmap():
 
 def test_unported_parts_say_so():
     import dataclasses
+    from gym_pybullet_drones_tpu.envs import (
+        make_routing_config as j_routing_config)
+    from gym_pybullet_drones_tpu.utils import enums as JE
     from gym_pybullet_drones_tpu_torch.envs import (
         HoverTask, make_routing_config)
     from gym_pybullet_drones_tpu_torch.utils import enums as TE
-    _, (tcfg, ttask) = pair()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcore.reset(dataclasses.replace(tcfg, physics=TE.Physics.PYB_DW),
-                    ttask, device="cpu")
+    (jcfg, jtask), (tcfg, ttask) = pair()
+    # the PYB family is ported: a reset and a step under PYB_DW give the
+    # JAX package's result
+    jdw = dataclasses.replace(jcfg, physics=JE.Physics.PYB_DW)
+    tdw = dataclasses.replace(tcfg, physics=TE.Physics.PYB_DW)
+    js, jobs, _ = jcore.reset(jdw, jtask)
+    ts, tobs, _ = tcore.reset(tdw, ttask, device="cpu")
+    _close(tobs, jobs)
+    a = np.full((1, 4), 0.5, np.float32)
+    _close(tcore.step(tdw, ttask, ts, torch.from_numpy(a))[1],
+           jcore.step(jdw, jtask, js, jnp.asarray(a))[1], "PYB_DW step")
     ts, _, _ = tcore.reset(tcfg, ttask, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        # the routing configuration's default physics is PYB, as in the
-        # JAX package; only DYN is ported
-        tcore.reset(*make_routing_config(2), device="cpu")
+    # the routing configuration's default physics is PYB, as in the JAX
+    # package, and it runs: the drones sink from their spawn under a zero
+    # action's hold command as they do there
+    rj, rt = j_routing_config(2), make_routing_config(2)
+    assert rt[0].physics == TE.Physics.PYB
+    js, jobs, _ = jcore.reset(*rj)
+    rs, robs, _ = tcore.reset(*rt, device="cpu")
+    _close(robs, jobs)
+    a = np.zeros((2, 3), np.float32)
+    jout = jcore.step(*rj, js, jnp.asarray(a))
+    tout = tcore.step(*rt, rs, torch.from_numpy(a))
+    _close(tout[1], jout[1], "routing PYB step", PID_ATOL)
+    _close(tout[2], jout[2], "routing PYB reward", PID_ATOL)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         HoverTask(obs=TE.ObservationType.RGB).compute_obs(tcfg, ts)
     with pytest.raises(NotImplementedError):

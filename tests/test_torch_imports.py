@@ -30,6 +30,9 @@ def test_scan_sees_the_port():
     for must in ("gym_pybullet_drones_tpu_torch/envs/fast.py",
                  "gym_pybullet_drones_tpu_torch/ops/kernel_fused.py",
                  "gym_pybullet_drones_tpu_torch/ops/kernel_pid.py",
+                 "gym_pybullet_drones_tpu_torch/ops/kernel_env.py",
+                 "gym_pybullet_drones_tpu_torch/ops/rigid_body.py",
+                 "gym_pybullet_drones_tpu_torch/ops/aero.py",
                  "gym_pybullet_drones_tpu_torch/control/__init__.py",
                  "gym_pybullet_drones_tpu_torch/control/dsl_pid.py",
                  "gym_pybullet_drones_tpu_torch/envs/routing.py",
@@ -47,6 +50,6 @@ def test_kernels_build_only_on_use():
     import gym_pybullet_drones_tpu_torch.envs  # noqa: F401
     assert _build._loaded is None
     assert set(_build.KERNELS) == {"dyn_ctrl_step", "pid_dyn_ctrl_step",
-                                   "fused_env_step"}
+                                   "fused_env_step", "env_ctrl_step"}
     for src, _ in _build.KERNELS.values():
         assert os.path.isfile(os.path.join(_build.CSRC_DIR, src))

@@ -167,12 +167,38 @@ def test_fused_rejects_ineligible(why):
 
 
 def test_other_physics_not_implemented():
+    """The PYB family goes through both entry points: a Hover step under
+    PYB (the spawn 0.1 m over the ground) gives the JAX package's XLA
+    result, at tests/test_fused.py's tolerance."""
     import dataclasses
-    _, (tcfg, ttask) = pair()
+    from gym_pybullet_drones_tpu.utils import enums as JE
+    (jcfg, jtask), (tcfg, ttask) = pair()
+    jpyb = dataclasses.replace(jcfg, physics=JE.Physics.PYB)
     pyb = dataclasses.replace(tcfg, physics=TE.Physics.PYB)
+    b = 4
+    j_reset, j_step = _j_batched(jpyb, jtask, b)
+    j_step = jax.jit(j_step)
+    a = (0.3 * np.random.default_rng(9).normal(size=(2, b, 1, 4))) \
+        .astype(np.float32)
     for make in (tfast.make_fused_rollout, tfast.make_batched_step):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make(pyb, ttask, 4, device="cpu")
+        js, jobs = j_reset()
+        reset, step = make(pyb, ttask, b, obs_layout="flat", device="cpu")
+        tc, tobs = reset()
+        np.testing.assert_allclose(tobs.numpy(), np.asarray(jobs), atol=ATOL)
+        for t in range(2):
+            js, jo, jr, jte, jtr = j_step(js, jnp.asarray(a[t]))
+            tc, to, tr, tte, ttr = step(tc, torch.from_numpy(a[t]))
+            np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=RTOL,
+                                       atol=ATOL)
+            np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=RTOL,
+                                       atol=ATOL)
+            assert tte.tolist() == np.asarray(jte).tolist()
+            assert ttr.tolist() == np.asarray(jtr).tolist()
+    # what the fused spec still refuses is a capacity
+    with pytest.raises(ValueError, match="obstacles"):
+        tfast.make_fused_rollout(dataclasses.replace(
+            pyb, obstacles=((0.0, 0.0, 5.0, 0.1),) * 9), ttask, b,
+            device="cpu")
 
 
 def test_wrapper_raises_on_what_the_kernel_does_not_take():

@@ -275,9 +275,35 @@ def test_routing_rollout_tilts_and_resets(entry):
 
 
 def test_pyb_default_is_not_ported():
+    """`make_routing_config()` with no arguments — four drones, PYB
+    physics — runs through both entry points and gives the JAX package's
+    XLA result."""
+    from gym_pybullet_drones_tpu.envs import (
+        make_routing_config as j_routing_config)
     from gym_pybullet_drones_tpu_torch.envs import make_routing_config
     cfg, task = make_routing_config()
     assert cfg.physics == TE.Physics.PYB and cfg.num_drones == 4
+    jcfg, jtask = j_routing_config()
+    b = 2
+    j_reset, j_step = jfast.make_batched_step(jcfg, jtask, b,
+                                              use_pallas=False,
+                                              obs_layout="flat")
+    j_step = jax.jit(j_step)
+    acts = (0.3 * np.random.default_rng(9).normal(size=(2, b, 4, 3))) \
+        .astype(np.float32)
     for make in (tfast.make_fused_rollout, tfast.make_batched_step):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make(cfg, task, 4, device="cpu")
+        js, jobs = j_reset()
+        reset, step = make(cfg, task, b, obs_layout="flat", device="cpu")
+        tc, tobs = reset()
+        assert tobs.shape == (b, 4 * 63)
+        np.testing.assert_allclose(tobs.numpy(), np.asarray(jobs),
+                                   atol=PID_ATOL)
+        for a in acts:
+            js, jo, jr, jte, jtr = j_step(js, jnp.asarray(a))
+            tc, to, tr, tte, ttr = step(tc, torch.from_numpy(a))
+            np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=RTOL,
+                                       atol=PID_ATOL)
+            np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=RTOL,
+                                       atol=PID_ATOL)
+            assert tte.tolist() == np.asarray(jte).tolist()
+            assert ttr.tolist() == np.asarray(jtr).tolist()
