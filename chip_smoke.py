@@ -22,6 +22,7 @@ then the card's name and power limit as nvidia-smi prints them, then
 `{"ok": true, "device": {...}}` as the last line.
 """
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -62,6 +63,7 @@ NN_MARGIN = 1e-5            # nearest-neighbour tie: relative gap of the two
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_OPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
 SEED = 0
+GEOMETRY_SUBSET = 33        # envs of a geometry case's second launch: 32 + 1
 
 
 def emit(obj):
@@ -156,7 +158,8 @@ def pyb_ops_per_env(n_substeps, n, gnd, drag, dw, sweeps, n_spheres=0,
                                    + (345 if pid else 0))
 
 
-def pyb_case_states(rng, b, n, params, dw=False):
+def pyb_case_states(rng, b, n, params, dw=False, packed=False,
+                    spacing=0.45, min_dz=0.06, deep=True):
     """(n, 16, b) float32 state rows of n drones in b envs.  In eighths of
     the envs: on the ground (rim points within the contact window), tilted
     past the upright gate, a pair inside 2 * collision_r, stacked drones,
@@ -164,7 +167,16 @@ def pyb_case_states(rng, b, n, params, dw=False):
     around the box (inside and outside); the rest in free flight.  With
     `dw` (the downwash modes) the drones of one env keep apart in height:
     at equal heights the downwash is unbounded, and the close pair sits one
-    above the other.  Returns the states and {case: column slice}."""
+    above the other.  `packed` (for up to 8 drones) spaces the drones
+    `spacing` [m] along x about x = 0, puts EVERY drone of the pair case in
+    the contact window of the one before it (with `dw`: stacked upwards,
+    6-13 cm apart), and with `dw` lifts drones until no two of an env are
+    within `min_dz` [m] of one height: with 28 pairs an env, near-ties
+    would be common otherwise.  Without `deep`, no drone sits deep inside
+    the sphere: within a few centimetres of its centre the contact normal
+    turns with the last bits of the offset, and one ulp of position moves
+    the step's velocity by more than the tolerance.  Returns the states and
+    {case: column slice}."""
     rc, h2 = params.collision_r, params.collision_h / 2
     st = np.stack([rand_state_rows(rng, b) for _ in range(n)])
     e = b // 8
@@ -173,7 +185,8 @@ def pyb_case_states(rng, b, n, params, dw=False):
              "sphere": slice(4 * e, 5 * e), "box": slice(5 * e, 6 * e)}
     g, t = cases["ground"], cases["tilted"]
     for d in range(n):
-        st[d, 0] += 0.6 * d        # apart, unless a case says otherwise
+        # apart, unless a case says otherwise
+        st[d, 0] += spacing * (d - (n - 1) / 2) if packed else 0.6 * d
         st[d, 2, g] = h2 - params.collision_z_offset \
             + rng.uniform(-0.02, 0.02, size=e) + (0.15 * d if dw else 0.0)
         st[d, 3:7, g] = rng.normal(size=(4, e)) * 0.03 \
@@ -185,14 +198,17 @@ def pyb_case_states(rng, b, n, params, dw=False):
             + (0.25 * d if dw else 0.0)
     if n > 1:
         pr, sk = cases["pair"], cases["stacked"]
-        off = rng.normal(size=(3, e))
-        off *= rng.uniform(0.07, 0.14, size=e) / np.linalg.norm(off, axis=0)
-        if dw:
-            off = np.stack([rng.uniform(-0.03, 0.03, size=e),
-                            rng.uniform(-0.03, 0.03, size=e),
-                            rng.uniform(0.06, 0.13, size=e)
-                            * rng.choice([-1, 1], size=e)])
-        st[1, 0:3, pr] = st[0, 0:3, pr] + off
+        for d in range(1, n if packed else 2):
+            off = rng.normal(size=(3, e))
+            off *= rng.uniform(0.07, 0.14, size=e) \
+                / np.linalg.norm(off, axis=0)
+            if dw:
+                off = np.stack([rng.uniform(-0.03, 0.03, size=e),
+                                rng.uniform(-0.03, 0.03, size=e),
+                                rng.uniform(0.06, 0.13, size=e)
+                                * (1 if packed
+                                   else rng.choice([-1, 1], size=e))])
+            st[d, 0:3, pr] = st[d - 1, 0:3, pr] + off
         for d in range(1, n):
             st[d, 0:2, sk] = st[0, 0:2, sk] + rng.normal(size=(2, e)) * 0.02
             st[d, 2, sk] = st[0, 2, sk] + 0.35 * d \
@@ -200,10 +216,18 @@ def pyb_case_states(rng, b, n, params, dw=False):
     u = rng.normal(size=(3, e))
     u /= np.linalg.norm(u, axis=0)
     dist = SPHERE[3] + rc + rng.uniform(-0.04, 0.04, size=e)
-    dist[:e // 8] = rng.uniform(0.0, 0.05, size=e // 8)
+    inside = rng.uniform(0.0, 0.05, size=e // 8)
+    if deep:
+        dist[:e // 8] = inside
     st[0, 0:3, cases["sphere"]] = np.asarray(SPHERE[:3])[:, None] + u * dist
     st[0, 0:3, cases["box"]] = np.asarray(BOX[:3])[:, None] \
         + np.asarray(BOX[3:])[:, None] * rng.uniform(-1.5, 1.5, size=(3, e))
+    if packed and dw:
+        order = np.argsort(st[:, 2], axis=0)
+        z = np.take_along_axis(st[:, 2], order, axis=0)
+        for k in range(1, n):
+            z[k] = np.maximum(z[k], z[k - 1] + min_dz)
+        np.put_along_axis(st[:, 2], order, z, axis=0)
     st[:, 3:7] /= np.linalg.norm(st[:, 3:7], axis=1, keepdims=True)
     return st.astype(np.float32), cases
 
@@ -246,6 +270,20 @@ def pyb_case_counts(st, params, obstacles):
     out.update(pair=int(pair.sum()), stacked=int(stacked.sum()),
                obstacle=int(hit.sum()), downwash_tie=int(tie.sum()))
     return out
+
+
+def ptxas_figures(log):
+    """Registers, stack frame and spills of the one __global__ function of
+    a source, from the `-Xptxas -v` output of its build."""
+    m = re.search(r"Function properties for \S*_kernel\S*\s+(\d+) bytes "
+                  r"stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                  r"loads\s+ptxas info\s*: Used (\d+) registers", log)
+    if m is None:      # a format this parser does not know: the raw lines
+        return {"ptxas_lines": [line.strip() for line in log.splitlines()
+                                if "registers" in line or "stack" in line]}
+    stack, stores, loads, regs = (int(x) for x in m.groups())
+    return {"registers": regs, "stack_frame_bytes": stack,
+            "spill_store_bytes": stores, "spill_load_bytes": loads}
 
 
 def eager_ms(fn, reps, warmup=3):
@@ -347,9 +385,7 @@ def main():
     _build.load()
     emit({"phase": "build", "seconds": round(_build.build_seconds, 3),
           "sources": sorted(src for src, _ in _build.KERNELS.values()),
-          "ptxas": {name: [line.strip() for line in log.splitlines()
-                           if "registers" in line or "spill" in line
-                           or "stack frame" in line]
+          "ptxas": {name: ptxas_figures(log)
                     for name, log in _build.build_log.items()}})
 
     def hover_cfg(n=1):
@@ -358,7 +394,7 @@ def main():
 
     # ---- kernels against their plain versions, on the card ----
     rng = np.random.default_rng(SEED)
-    checks, summary = [], {}
+    checks, geometry_records, summary = [], [], {}
 
     def dyn_case(model, b, emit_obs12, timed=None):
         s = rand_state_rows(rng, b)
@@ -383,7 +419,8 @@ def main():
             raise AssertionError("keep branch: quaternion changed at zero "
                                  "rates")
         rec = {"kernel": "dyn_ctrl_step", "model": model.model.value, "B": b,
-               "emit_obs12": emit_obs12, "max_abs_err": err}
+               "emit_obs12": emit_obs12, "max_abs_err": err,
+               "geometry": _build.launch_geometry("dyn_ctrl_step", b)}
         if timed:
             # 13 state rows (no ang-vel) and 4 rpm rows in, 16 (+12) out
             rows = 13 + 4 + 16 + (12 if emit_obs12 else 0)
@@ -429,7 +466,8 @@ def main():
                "model": dyn_model.model.value, "B": b,
                "emit_obs12": emit_obs12,
                "max_abs_err": max(errs[:2] + errs[3:]),
-               "max_abs_err_rpm": errs[2]}
+               "max_abs_err_rpm": errs[2],
+               "geometry": _build.launch_geometry("pid_dyn_ctrl_step", b)}
         if timed:
             # 13 state rows (no ang-vel), 9 PID and 12 setpoint rows in;
             # 16 + 9 + 4 (+ 12) out
@@ -464,13 +502,54 @@ def main():
             sum(len(o) == 4 for o in obstacles),
             sum(len(o) == 6 for o in obstacles), pid, euler_calls)
 
+    def beyond_envs(triples, per_env):
+        """(envs,) bool: some value of some (got, ref, (atol, rtol)) beyond
+        its tolerance (NaN counts as beyond); `per_env` columns an env."""
+        out = None
+        for g, r, (atol, rtol) in triples:
+            bad = (~((g - r).abs() <= atol + rtol * r.abs())).any(dim=0)
+            out = bad if out is None else out | bad
+        return out.reshape(-1, per_env).any(dim=1)
+
+    def unsettled(kernel_off, triples64, per_env):
+        """Of the envs `kernel_off` (the kernel beyond the float32 plain
+        version), those where the plain version in float64 is beyond it as
+        well: there the step is not settled in float32
+        (`scripts/downwash_witness.py`), so no float32 version can be held
+        to it.  `triples64`: (plain64, plain32, tol)."""
+        return kernel_off & beyond_envs(
+            [(g.float(), r, tol) for g, r, tol in triples64], per_env)
+
+    def subset_launch(kernel, n, b, envs, per_env, got, run_cols):
+        """Launch `kernel` again on `envs` envs spread evenly over the b of
+        a checked launch, `run_cols(columns)` taking the inputs' columns of
+        those envs (`per_env` columns each), and require its outputs to be
+        the checked launch's at those columns bit for bit: an env's threads
+        compute the same wherever its block lies.  Returns the record."""
+        idx = torch.arange(envs, device=dev) * (b // envs)
+        cols = (idx[:, None] * per_env
+                + torch.arange(per_env, device=dev)).reshape(-1)
+        for g, g2 in zip(got, run_cols(cols)):
+            if g is not None and not torch.equal(
+                    g[:, cols].view(torch.int32), g2.view(torch.int32)):
+                raise AssertionError(
+                    f"{kernel} n={n}: {envs} envs of a {b}-env launch do "
+                    "not give its outputs bit for bit")
+        return {"kernel": kernel, "n": n, "B": envs, "envs_of": b,
+                "bitwise": True,
+                "geometry": _build.launch_geometry(kernel, envs, n)}
+
     def env_case(physics, n, use_pid, emit_obs12, model, b, timed=None,
-                 obstacles=(SPHERE, BOX), sweeps=4):
+                 obstacles=(SPHERE, BOX), sweeps=4, geometry=False):
         """`env_ctrl_step` against its plain version from identical random
         input, one launch: b envs of n drones with the case shares of
-        `pyb_case_states`."""
+        `pyb_case_states`.  A `geometry` case packs the drones, leaves out
+        and counts the envs not settled in float32 (`unsettled`), launches
+        again on GEOMETRY_SUBSET of the envs (`subset_launch`), and goes to
+        the geometry records."""
         dw = physics in DW_MODES
-        st, _ = pyb_case_states(rng, b, n, model, dw)
+        st, _ = pyb_case_states(rng, b, n, model, dw, packed=geometry,
+                                deep=not geometry)
         counts = pyb_case_counts(st, model, obstacles)
         rows = lambda x: torch.from_numpy(np.ascontiguousarray(
             x.transpose(1, 2, 0).reshape(x.shape[1], b * n)
@@ -511,17 +590,22 @@ def main():
                                        (9, 12, angv)])}
         named = [(k, g, r) for k, g, r in zip(tols, got, ref)
                  if g is not None]
+        differs = beyond_envs([(g, r, tols[k]) for k, g, r in named], n)
         # an env at a downwash tie is left out, if and only if the two
         # versions do differ there (or overflow there)
         tied = torch.zeros(b, dtype=torch.bool, device=dev)
         if dw and n > 1:
-            differs = torch.zeros(b * n, dtype=torch.bool, device=dev)
-            for k, g, r in named:
-                atol, rtol = tols[k]
-                differs |= (~((g - r).abs() <= atol + rtol * r.abs())) \
-                    .any(dim=0)
-            tied = dw_tie(torch.from_numpy(st[:, 0:3]).to(dev)) \
-                & differs.reshape(b, n).any(dim=1)
+            tied = dw_tie(torch.from_numpy(st[:, 0:3]).to(dev)) & differs
+        n_unsettled = 0
+        if geometry and (differs & ~tied).any():
+            ref64 = kernel_env.env_ctrl_step_plain(*args[:8], *(
+                None if x is None else x.double() for x in args[8:12]),
+                *args[12:])
+            off = unsettled(differs & ~tied, [
+                (g64, r, tols[k]) for (k, _, r), g64 in zip(
+                    named, [x for x in ref64 if x is not None])], n)
+            n_unsettled = int(off.sum())
+            tied |= off
         same = (~tied).repeat_interleave(n)
         errs = {k: check_close(f"env_ctrl_step {physics.value} n={n} {k}",
                                g, r, same, tols[k]) for k, g, r in named}
@@ -530,7 +614,11 @@ def main():
                "model": model.model.value, "B": b, "sweeps": sweeps,
                "max_abs_err": max(v for k, v in errs.items() if k != "rpm"),
                "max_abs_err_rpm": errs["rpm"],
-               "envs_by_case": counts, "left_out_at_a_tie": int(tied.sum())}
+               "envs_by_case": counts,
+               "left_out_at_a_tie": int(tied.sum()) - n_unsettled,
+               "geometry": _build.launch_geometry("env_ctrl_step", b, n)}
+        if geometry:
+            rec["left_out_unsettled"] = n_unsettled
         if timed:
             # in: 16 state rows per drone (under DYN 13: the ang-vel rows
             # are recomputed), the action rows, the PID rows, the last rpm
@@ -548,7 +636,15 @@ def main():
                        plain_ms=eager_ms(plain, 2, 1), bound_ms=bms,
                        bound_by=by, rows_moved=rows_moved, ops_per_env=ops)
             summary[("env_ctrl_step", timed)] = rec
-        checks.append(rec)
+        if not geometry:
+            checks.append(rec)
+            return
+        geometry_records.append(rec)
+        geometry_records.append(subset_launch(
+            "env_ctrl_step", n, b, GEOMETRY_SUBSET, n, got,
+            lambda cols: kernel_env.env_ctrl_step_rows(*args[:8], *(
+                None if x is None else x[:, cols] for x in args[8:12]),
+                *args[12:])))
 
     for physics in (Physics.PYB, Physics.PYB_GND, Physics.PYB_DRAG,
                     Physics.PYB_DW, Physics.PYB_GND_DRAG_DW, Physics.DYN):
@@ -657,7 +753,10 @@ def main():
         margins.append((sc_row / cfg.pyb_freq - rc.episode_len_sec).abs())
         return torch.stack(margins).min(dim=0).values
 
-    def fused_case(name, cfg, task, b):
+    def fused_case(name, cfg, task, b, timed=True, geometry=False):
+        """`fused_env_step` against its plain version from a random
+        mid-episode carry, one launch; timed unless `timed` is False.  A
+        `geometry` case is as in `env_case`."""
         spec = fused_spec(cfg, task)
         n, A = spec.n, spec.act_dim
         per = (spec.carry_rows - 1) // n
@@ -672,7 +771,8 @@ def main():
         if pyb:
             # the case shares of the PYB checks: ground, tilted, pair,
             # stacked, around the obstacles, free flight
-            st16, _ = pyb_case_states(rng, b, n, cfg.drone, dw)
+            st16, _ = pyb_case_states(rng, b, n, cfg.drone, dw,
+                                      packed=geometry, deep=not geometry)
         for d in range(n):
             c[d * per:d * per + 16] = st16[d] if pyb \
                 else rand_state_rows(rng, b)
@@ -748,19 +848,25 @@ def main():
                            (ob + 9, ob + 12, wide(angv, ob_tol))]
             tol_c = row_tols(spec.carry_rows, spans[1:])
             tol_o = row_tols(spec.out_rows, spans[:1] + ospans)
+        differs = beyond_envs([(gc, rc_, tol_c), (go, ro, tol_o)], 1)
         if dw and n > 1:
             # an env at a downwash tie is left out, if and only if the two
             # versions do differ there
-            beyond_any = lambda g, r, tol: (
-                ~((g - r).abs() <= tol[0] + tol[1] * r.abs())).any(dim=0)
             pos0 = torch.stack([carry[d * per:d * per + 3]
                                 for d in range(n)])
-            dw_tied = dw_tie(pos0) & (beyond_any(gc, rc_, tol_c)
-                                      | beyond_any(go, ro, tol_o))
+            dw_tied = dw_tie(pos0) & differs
             n_dw_tied = int((dw_tied & ~tied).sum())
             tied |= dw_tied
         else:
             n_dw_tied = 0
+        n_unsettled = 0
+        if geometry and (differs & ~tied).any():
+            rc64, ro64 = kernel_fused.fused_env_step_plain(
+                spec, carry.double(), act.double())
+            off = unsettled(differs & ~tied, [(rc64, rc_, tol_c),
+                                              (ro64, ro, tol_o)], 1)
+            n_unsettled = int(off.sum())
+            tied |= off
         same = ~tied
         err_rpm = 0.0
         if has_pid:
@@ -780,7 +886,8 @@ def main():
             raise AssertionError(f"{name}: the case must mix done and "
                                  "running envs")
         rec = {"kernel": "fused_env_step", "config": name, "B": b,
-               "rows": [spec.carry_rows, spec.out_rows]}
+               "rows": [spec.carry_rows, spec.out_rows],
+               "geometry": _build.launch_geometry("fused_env_step", b, n)}
         if routing:
             d_goal = torch.stack([torch.sqrt(sum(
                 (t[k] - o[k]) ** 2 for k in range(3)))
@@ -810,20 +917,31 @@ def main():
             ops += pyb_ops(cfg.physics, n, cfg.obstacles,
                            cfg.solver_iterations) \
                 - n * (175 * SUB + 30 + 40 + 40)
-        bms, by = bound_ms(rows, b, ops)
         rec.update({
             "max_abs_err": err, "flag_ties": int(flags_differ.sum()),
-            "other_ties": int(tied.sum() - flags_differ.sum()),
-            "done_share": float(done.float().mean()),
-            "ms": graph_ms(run), "eager_ms": eager_ms(run, 200),
-            "plain_ms": eager_ms(plain, 5, 1), "bound_ms": bms,
-            "bound_by": by, "rows_moved": rows, "ops_per_env": ops})
+            "other_ties": int(tied.sum() - flags_differ.sum()) - n_unsettled,
+            "done_share": float(done.float().mean())})
+        if geometry:
+            rec["left_out_unsettled"] = n_unsettled
+        if timed:
+            bms, by = bound_ms(rows, b, ops)
+            rec.update({
+                "ms": graph_ms(run), "eager_ms": eager_ms(run, 200),
+                "plain_ms": eager_ms(plain, 5, 1), "bound_ms": bms,
+                "bound_by": by, "rows_moved": rows, "ops_per_env": ops})
+            summary[("fused_env_step", name)] = rec
         if has_pid:
             rec["max_abs_err_rpm"] = err_rpm
         if pyb:
             rec.update(envs_by_case=counts, left_out_at_a_tie=n_dw_tied)
-        checks.append(rec)
-        summary[("fused_env_step", name)] = rec
+        if not geometry:
+            checks.append(rec)
+            return
+        geometry_records.append(rec)
+        geometry_records.append(subset_launch(
+            "fused_env_step", n, b, GEOMETRY_SUBSET, 1, (gc, go),
+            lambda cols: kernel_fused.fused_env_step(
+                spec, carry[:, cols], act[:, cols])))
 
     fused_case("hover4096", hover_cfg(), HoverTask(act=ActionType.RPM), 4096)
     fused_case("hover4096_one_d_rpm", hover_cfg(),
@@ -846,8 +964,34 @@ def main():
         P.CF2X, 2, Physics.PYB_GND_DRAG_DW, 240, 30,
         init_xyzs=((0.0, 0.0, 0.3), (0.02, 0.0, 0.8)),
         obstacles=(SPHERE, BOX)), MultiHoverTask(act=ActionType.RPM), 1024)
+
+    # geometry: both block-coupled kernels at 1, 2, 3, 4 and 8 drones a
+    # block and with a partial last block (1000 = 31 x 32 + 8 envs, 33 =
+    # 32 + 1), under every aero effect (downwash, with stacked spawns) and
+    # the drones packed (`pyb_case_states`), so that every warp of a block
+    # has a drone in contact with another; then branch (c), routing, at 3
+    # drones.  The 1000-env launches are held against the plain versions,
+    # the 33-env ones (33 of those envs) against them bit for bit.  Not
+    # timed; the phase's wall time goes out as `geometry_seconds`.
+    t_geometry = time.perf_counter()
+    # its own stream: its inputs do not move when an earlier check changes
+    rng = np.random.default_rng(SEED + 2)
+    for n in (1, 2, 3, 4, 8):
+        env_case(Physics.PYB_GND_DRAG_DW, n, n % 2 == 0, True, P.CF2X, 1000,
+                 geometry=True)
+        fused_case(f"multihover{n}x1000_pyb_aero_stacked", AviaryConfig(
+            P.CF2X, n, Physics.PYB_GND_DRAG_DW, 240, 30,
+            init_xyzs=tuple((0.02 * d, 0.0, 0.3 + 0.5 * d)
+                            for d in range(n)),
+            obstacles=(SPHERE, BOX)), MultiHoverTask(act=ActionType.RPM),
+            1000, timed=False, geometry=True)
+    r3cfg, r3task = make_routing_config(num_drones=3, physics=Physics.DYN)
+    fused_case("routing3x1000", r3cfg, r3task, 1000, timed=False,
+               geometry=True)
+    torch.cuda.synchronize()
     emit({"phase": "kernel_checks", "atol": ATOL, "rtol": RTOL,
-          "cases": checks})
+          "cases": checks, "geometry": geometry_records,
+          "geometry_seconds": time.perf_counter() - t_geometry})
 
     # ---- the main path ----
     def random_rollout(name, cfg, task, b, steps, compare_steps=32,
@@ -1232,7 +1376,8 @@ def main():
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"],
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-                "library_ms": None})
+                "library_ms": None, "blocks": rec["geometry"][0],
+                "threads": rec["geometry"][1]})
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {

@@ -128,6 +128,7 @@ _ARGTYPES = {
 }
 
 _loaded: dict | None = None
+_geometry: dict = {}                # kernel name -> its C geometry function
 build_seconds: float | None = None  # wall time `load()` spent in `build()`
 build_log: dict = {}                # kernel name -> nvcc output, when built
 
@@ -209,5 +210,21 @@ def load() -> dict:
         fn.argtypes = _ARGTYPES[entry]
         fn.restype = ctypes.c_int
         fns[name] = fn
+        geo = getattr(lib, entry + "_geometry")
+        geo.argtypes = [ctypes.c_int, ctypes.c_int,
+                        ctypes.POINTER(ctypes.c_int),
+                        ctypes.POINTER(ctypes.c_int)]
+        geo.restype = None
+        _geometry[name] = geo
     _loaded = fns
     return fns
+
+
+def launch_geometry(name: str, b: int, n_drones: int = 1) -> tuple:
+    """(blocks, threads per block) of the launch kernel `name` makes for
+    its C argument B = `b` and `n_drones`, from the function of the same
+    source that its launcher calls (`<entry>_geometry`)."""
+    load()
+    blocks, threads = ctypes.c_int(), ctypes.c_int()
+    _geometry[name](b, n_drones, ctypes.byref(blocks), ctypes.byref(threads))
+    return blocks.value, threads.value

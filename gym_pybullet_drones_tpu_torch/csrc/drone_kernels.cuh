@@ -2,12 +2,18 @@
 //
 // The per-column arithmetic lives here once: the motor mixer, the explicit
 // DYN substeps, the Euler extraction, the cascaded DSL-PID tick with its
-// setpoints, the coupled PYB-family substep over all drones of an env, and
-// the Hover / MultiHover / Routing task post-processing.
+// setpoints, one drone's PYB-family substep, one drone-drone contact pair,
+// one downwash term, and the Hover / MultiHover / Routing task shares.
 // dyn_ctrl_step.cu, pid_dyn_ctrl_step.cu, env_ctrl_step.cu and
 // fused_env_step.cu are thin __global__ shells around these functions.
 // Everything is float32 and written as GPD_HD functions (plain `inline`
 // without nvcc), so the same bodies can be compiled for the host.
+//
+// The one block-level function, gpd_pyb_ctrl_substeps (the coupled PYB
+// substeps of one drone of a block whose warp w holds drone w of 32 envs,
+// exchanging poses through shared memory), meets the other threads of its
+// block at barriers, GPD_SYNC(): __syncthreads() under nvcc.  A host build
+// of it defines GPD_SYNC() and the CUDA qualifiers itself.
 //
 // Formulas mirror the plain PyTorch versions in ops/kernel_dyn.py,
 // ops/kernel_pid.py, ops/kernel_env.py, ops/kernel_math.py, envs/tasks.py
@@ -19,6 +25,7 @@
 
 #if defined(__CUDACC__)
 #define GPD_HD __host__ __device__ __forceinline__
+#define GPD_SYNC() __syncthreads()
 #else
 #define GPD_HD inline
 #endif
@@ -30,6 +37,7 @@
 #define GPD_LR 4   // last-rpm rows per drone
 #define GPD_PR 9   // embedded-PID carry rows per drone (PID-family actions)
 #define GPD_TR 12  // PID setpoint rows: target pos, rpy, vel, rpy rates
+#define GPD_ENVS 32  // envs per block: warp w of a block is drone w of them
 
 enum {
     GPD_ACT_RPM = 0, GPD_ACT_ONE_D_RPM = 1,
@@ -465,12 +473,25 @@ GPD_HD void gpd_rot_rows(const float* q, float* r) {
     r[8] = 1.0f - 2.0f * (xx + yy);
 }
 
+// v[i] for a motor index known only at run time, by selects: indexing a
+// register array at run time would move it to local memory.
+GPD_HD float gpd_pick4(const float* v, int i) {
+    return i == 0 ? v[0] : (i == 1 ? v[1] : (i == 2 ? v[2] : v[3]));
+}
+
 GPD_HD float gpd_tau_axis(const GpdTorqueAxis& t, const float* rpm) {
     float out = 0.0f;
-    for (int k = 0; k < t.n_pairs; ++k)
-        out = out + gpd_dsq(rpm[t.pair_i[k]], rpm[t.pair_j[k]]) * t.pair_c[k];
-    for (int k = 0; k < t.n_left; ++k)
-        out = out + (rpm[t.left_i[k]] * rpm[t.left_i[k]]) * t.left_c[k];
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+        if (k < t.n_pairs)
+            out = out + gpd_dsq(gpd_pick4(rpm, t.pair_i[k]),
+                                gpd_pick4(rpm, t.pair_j[k])) * t.pair_c[k];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+        if (k < t.n_left) {
+            const float r = gpd_pick4(rpm, t.left_i[k]);
+            out = out + (r * r) * t.left_c[k];
+        }
     return out;
 }
 
@@ -557,7 +578,7 @@ GPD_HD void gpd_pyb_drone_substep(const GpdStepParams& P, float* s,
         const float half_pi = 1.57079632679489661923f;
         const float gate =
             ((fabsf(roll) < half_pi) & (fabsf(pitch) < half_pi)) ? 1.0f : 0.0f;
-#pragma unroll 1
+#pragma unroll
         for (int i = 0; i < 4; ++i) {
             const float ox = y.prop_x[i], oy = y.prop_y[i];
             const float wox = r[0] * ox + r[1] * oy;
@@ -636,12 +657,15 @@ GPD_HD void gpd_pyb_drone_substep(const GpdStepParams& P, float* s,
         kt[1][ki] = c.inv_m + gpd_keff1(r, c, arms[ki], t2v);
         acc_n[ki] = 0.0f; acc_t[0][ki] = 0.0f; acc_t[1][ki] = 0.0f;
     }
-    // static obstacles as centred contacts: no lever arm, no angular term
+    // static obstacles as centred contacts: no lever arm, no angular term.
+    // The obstacle loops unroll over the table's capacity and stop at the
+    // configured count, so these arrays stay in registers.
     float en[GPD_MAX_OBSTACLES][3], edepth[GPD_MAX_OBSTACLES];
     float eacc[GPD_MAX_OBSTACLES], etan[GPD_MAX_OBSTACLES];
-#pragma unroll 1
-    for (int e = 0; e < y.n_obstacles; ++e) {
-        gpd_obstacle_contact(y, e, s, en[e], edepth[e]);
+#pragma unroll
+    for (int e = 0; e < GPD_MAX_OBSTACLES; ++e) {
+        en[e][0] = en[e][1] = en[e][2] = edepth[e] = 0.0f;
+        if (e < y.n_obstacles) gpd_obstacle_contact(y, e, s, en[e], edepth[e]);
         eacc[e] = 0.0f; etan[e] = 0.0f;
     }
 #pragma unroll 1
@@ -686,8 +710,9 @@ GPD_HD void gpd_pyb_drone_substep(const GpdStepParams& P, float* s,
                 w[2] = w[2] + dwv[2];
             }
         }
-#pragma unroll 1
-        for (int e = 0; e < y.n_obstacles; ++e) {
+#pragma unroll
+        for (int e = 0; e < GPD_MAX_OBSTACLES; ++e) {
+            if (e >= y.n_obstacles) break;
             const float* n_ = en[e];
             const float depth = edepth[e];
             const float a = depth > -y.slop ? 1.0f : 0.0f;
@@ -772,141 +797,181 @@ GPD_HD float gpd_keff2(const GpdStepParams& P, const float* rot_i,
     return P.pyb.two_inv_m + t_i + t_j;
 }
 
-// Drone-drone cylinder-manifold contact on the post-step poses: every
-// impulse is computed from the state as it stands (st is not written until
-// all pairs are done), each unordered pair once, -imp to the partner.
-GPD_HD void gpd_pyb_pairs(const GpdStepParams& P, float (*st)[GPD_PS]) {
-    const GpdDrone& c = P.drone;
+// Drone-drone cylinder-manifold contact of the pair (i, j), i < j, on the
+// post-step poses a = drone i and b = drone j ([p3 q4 v3 w3] each, rotation
+// rows rot_i, rot_j): the impulse `imp` on i (-imp on j) and the lever
+// arms r_i, r_j.  Both members of a pair call it with the same arguments,
+// in this (i, j) orientation, and get the same floats.
+GPD_HD void gpd_pair_impulse(const GpdStepParams& P, const float* a,
+                             const float* b, const float* rot_i,
+                             const float* rot_j, float* imp, float* r_i,
+                             float* r_j) {
     const GpdPyb& y = P.pyb;
-    const int n = P.n_drones;
-    float acc[GPD_MAX_DRONES][6];
-#pragma unroll 1
-    for (int i = 0; i < n; ++i)
-        for (int k = 0; k < 6; ++k) acc[i][k] = 0.0f;
-#pragma unroll 1
-    for (int i = 0; i < n; ++i) {
-        const float* pi = st[i];
-        const float* vi = st[i] + 7;
-        const float* wi = st[i] + 10;
-        float rot_i[9];
-        gpd_rot_rows(st[i] + 3, rot_i);
-#pragma unroll 1
-        for (int j = i + 1; j < n; ++j) {
-            const float* pj = st[j];
-            const float* vj = st[j] + 7;
-            const float* wj = st[j] + 10;
-            float rot_j[9];
-            gpd_rot_rows(st[j] + 3, rot_j);
-            const float dx = pi[0] - pj[0], dy = pi[1] - pj[1],
-                        dz = pi[2] - pj[2];
-            const float dist = sqrtf(dx * dx + dy * dy + dz * dz);
-            const float depth = y.min_d - dist;
-            const float hitm =
-                ((depth > -y.slop) & (dist > 1e-6f)) ? 1.0f : 0.0f;
-            const float inv_d = 1.0f / gpd_at_least(dist, 1e-6f);
-            const float nv[3] = {dx * inv_d, dy * inv_d, dz * inv_d};
-            const float mid[3] = {0.5f * (pi[0] + pj[0]),
-                                  0.5f * (pi[1] + pj[1]),
-                                  0.5f * (pi[2] + pj[2])};
-            float si[3], sj[3];
-            gpd_cyl_clamp(y, pi, rot_i, mid, si);
-            gpd_cyl_clamp(y, pj, rot_j, mid, sj);
-            const float r_i[3] = {0.5f * (si[0] + sj[0]) - pi[0],
-                                  0.5f * (si[1] + sj[1]) - pi[1],
-                                  0.5f * (si[2] + sj[2]) - pi[2]};
-            const float r_j[3] = {0.5f * (si[0] + sj[0]) - pj[0],
-                                  0.5f * (si[1] + sj[1]) - pj[1],
-                                  0.5f * (si[2] + sj[2]) - pj[2]};
-            float wxr_i[3], wxr_j[3];
-            gpd_cross(wi, r_i, wxr_i);
-            gpd_cross(wj, r_j, wxr_j);
-            const float rel[3] = {vi[0] + wxr_i[0] - vj[0] - wxr_j[0],
-                                  vi[1] + wxr_i[1] - vj[1] - wxr_j[1],
-                                  vi[2] + wxr_i[2] - vj[2] - wxr_j[2]};
-            const float vn = gpd_dot3(rel, nv);
-            const float tgt = depth > 0.0f ? y.erp_dt * depth
-                                           : y.inv_dt * depth;
-            const float j_n = gpd_at_least(tgt - vn, 0.0f)
-                              / gpd_keff2(P, rot_i, rot_j, r_i, r_j, nv)
-                              * hitm;
-            const float vtv[3] = {rel[0] - vn * nv[0], rel[1] - vn * nv[1],
-                                  rel[2] - vn * nv[2]};
-            const float vt_n = sqrtf(gpd_dot3(vtv, vtv));
-            const float inv_vt = 1.0f / gpd_at_least(vt_n, 1e-9f);
-            const float tv[3] = {vtv[0] * inv_vt, vtv[1] * inv_vt,
-                                 vtv[2] * inv_vt};
-            const float j_t =
-                gpd_at_most(vt_n / gpd_keff2(P, rot_i, rot_j, r_i, r_j, tv),
-                            y.mu * j_n) * hitm;
-            const float imp[3] = {j_n * nv[0] - j_t * tv[0],
-                                  j_n * nv[1] - j_t * tv[1],
-                                  j_n * nv[2] - j_t * tv[2]};
-            const float imp_n[3] = {-imp[0], -imp[1], -imp[2]};
-            float t[3], dwi[3], dwj[3];
-            gpd_cross(r_i, imp, t);
-            gpd_iinv_w(rot_i, c, t, dwi);
-            gpd_cross(r_j, imp_n, t);
-            gpd_iinv_w(rot_j, c, t, dwj);
+    const float* pi = a;
+    const float* vi = a + 7;
+    const float* wi = a + 10;
+    const float* pj = b;
+    const float* vj = b + 7;
+    const float* wj = b + 10;
+    const float dx = pi[0] - pj[0], dy = pi[1] - pj[1], dz = pi[2] - pj[2];
+    const float dist = sqrtf(dx * dx + dy * dy + dz * dz);
+    const float depth = y.min_d - dist;
+    const float hitm = ((depth > -y.slop) & (dist > 1e-6f)) ? 1.0f : 0.0f;
+    const float inv_d = 1.0f / gpd_at_least(dist, 1e-6f);
+    const float nv[3] = {dx * inv_d, dy * inv_d, dz * inv_d};
+    const float mid[3] = {0.5f * (pi[0] + pj[0]), 0.5f * (pi[1] + pj[1]),
+                          0.5f * (pi[2] + pj[2])};
+    float si[3], sj[3];
+    gpd_cyl_clamp(y, pi, rot_i, mid, si);
+    gpd_cyl_clamp(y, pj, rot_j, mid, sj);
 #pragma unroll
-            for (int k = 0; k < 3; ++k) {
-                acc[i][k] = acc[i][k] + imp[k];
-                acc[i][3 + k] = acc[i][3 + k] + dwi[k];
-                acc[j][k] = acc[j][k] + imp_n[k];
-                acc[j][3 + k] = acc[j][3 + k] + dwj[k];
-            }
-        }
+    for (int k = 0; k < 3; ++k) {
+        r_i[k] = 0.5f * (si[k] + sj[k]) - pi[k];
+        r_j[k] = 0.5f * (si[k] + sj[k]) - pj[k];
     }
-#pragma unroll 1
-    for (int i = 0; i < n; ++i) {
+    float wxr_i[3], wxr_j[3];
+    gpd_cross(wi, r_i, wxr_i);
+    gpd_cross(wj, r_j, wxr_j);
+    const float rel[3] = {vi[0] + wxr_i[0] - vj[0] - wxr_j[0],
+                          vi[1] + wxr_i[1] - vj[1] - wxr_j[1],
+                          vi[2] + wxr_i[2] - vj[2] - wxr_j[2]};
+    const float vn = gpd_dot3(rel, nv);
+    const float tgt = depth > 0.0f ? y.erp_dt * depth : y.inv_dt * depth;
+    const float j_n = gpd_at_least(tgt - vn, 0.0f)
+                      / gpd_keff2(P, rot_i, rot_j, r_i, r_j, nv) * hitm;
+    const float vtv[3] = {rel[0] - vn * nv[0], rel[1] - vn * nv[1],
+                          rel[2] - vn * nv[2]};
+    const float vt_n = sqrtf(gpd_dot3(vtv, vtv));
+    const float inv_vt = 1.0f / gpd_at_least(vt_n, 1e-9f);
+    const float tv[3] = {vtv[0] * inv_vt, vtv[1] * inv_vt, vtv[2] * inv_vt};
+    const float j_t =
+        gpd_at_most(vt_n / gpd_keff2(P, rot_i, rot_j, r_i, r_j, tv),
+                    y.mu * j_n) * hitm;
 #pragma unroll
-        for (int k = 0; k < 3; ++k) {
-            st[i][7 + k] = st[i][7 + k] + c.inv_m * acc[i][k];
-            st[i][10 + k] = st[i][10 + k] + acc[i][3 + k];
-        }
-    }
+    for (int k = 0; k < 3; ++k) imp[k] = j_n * nv[k] - j_t * tv[k];
 }
 
-// One coupled PYB substep for every drone of the env: the counterpart of
-// the TPU kernels' `_pyb_substep_all`.  st[d] = [p3 q4 v3 w3] is updated in
-// place.  Each drone's forces need only its own pre-substep state and the
-// PRE-substep positions of the others (downwash), so the downwash sums are
-// taken first and the drones are then stepped one after the other; the
-// drone-drone contact follows on the post-step poses of all.
-GPD_HD void gpd_pyb_substep_all(const GpdStepParams& P, float (*st)[GPD_PS],
-                                const float (*rpm)[4],
-                                const float (*drag_rpm)[4]) {
+// Downwash magnitude on the drone at `own` from the drone at `src`, both
+// PRE-substep positions: zero unless src is above and within 10 m.
+GPD_HD float gpd_downwash_term(const GpdPyb& y, const float* src,
+                               const float* own) {
+    const float dz = src[2] - own[2];
+    const float dx = src[0] - own[0];
+    const float dy = src[1] - own[1];
+    const float dxy = sqrtf(dx * dx + dy * dy);
+    const bool mask = (dz > 0.0f) & (dxy < 10.0f);
+    const float safe_dz = mask ? dz : 1.0f;
+    const float q = y.prop_radius / (4.0f * safe_dz);
+    const float alpha = y.dw1 * (q * q);
+    const float beta = y.dw2 * safe_dz + y.dw3;
+    const float u = dxy / beta;
+    const float mag = alpha * expf(-0.5f * (u * u));
+    return mask ? mag : 0.0f;
+}
+
+// n_substeps coupled PYB substeps of ONE drone, the counterpart of the TPU
+// kernels' `_pyb_substep_all`, run by every thread of a block whose warp w
+// holds drone w of GPD_ENVS envs; this thread is drone d of env `lane`.
+// s = [p3 q4 v3 w3] stays in registers and is updated in place; rpm is the
+// applied rpm, `last` the previous control step's (the stale drag of
+// substep 0, read only when `drag`).  `sh` holds two pose buffers of
+// n x GPD_PS x GPD_ENVS floats, used in turn: substep i writes its
+// post-step poses to buffer i % 2, while the downwash of substep i reads
+// the PRE-substep positions from the other (the drone-drone contact
+// changes velocities only, so a post-step position is the next substep's
+// pre-substep one).  One barrier per substep, plus one ahead of the first
+// downwash.  Every thread of the block calls this, those past the last env
+// too: it meets the others at barriers.
+//
+// Per substep: (i) the downwash on this drone from the others in ascending
+// index; (ii) gpd_pyb_drone_substep on its own state; (iii) its post-step
+// pose to shared memory, barrier; (iv) the drone-drone contact: every pair
+// this drone belongs to, in ascending partner order, each evaluated in its
+// (min, max) orientation, this drone's share summed in the order of the
+// one-thread-per-env loop over pairs, and applied once all are done.
+__device__ __forceinline__ void gpd_pyb_ctrl_substeps(
+    const GpdStepParams& P, float* s, const float* rpm, const float* last,
+    bool drag, float* sh, int d, int lane) {
     const GpdPyb& y = P.pyb;
     const int n = P.n_drones;
     const bool has_dw = y.dw && n > 1;
-    float dw_total[GPD_MAX_DRONES];
+    const int buf = n * GPD_PS * GPD_ENVS;
+#define GPD_POSE(base, j, r) (base)[((j) * GPD_PS + (r)) * GPD_ENVS + lane]
     if (has_dw) {
-#pragma unroll 1
-        for (int di = 0; di < n; ++di) {
-            float total = 0.0f;
-#pragma unroll 1
-            for (int si = 0; si < n; ++si) {
-                if (si == di) continue;
-                const float dz = st[si][2] - st[di][2];
-                const float dx = st[si][0] - st[di][0];
-                const float dy = st[si][1] - st[di][1];
-                const float dxy = sqrtf(dx * dx + dy * dy);
-                const bool mask = (dz > 0.0f) & (dxy < 10.0f);
-                const float safe_dz = mask ? dz : 1.0f;
-                const float q = y.prop_radius / (4.0f * safe_dz);
-                const float alpha = y.dw1 * (q * q);
-                const float beta = y.dw2 * safe_dz + y.dw3;
-                const float u = dxy / beta;
-                const float mag = alpha * expf(-0.5f * (u * u));
-                total = total + (mask ? mag : 0.0f);
-            }
-            dw_total[di] = total;
-        }
+#pragma unroll
+        for (int k = 0; k < 3; ++k) GPD_POSE(sh + buf, d, k) = s[k];
+        GPD_SYNC();
     }
 #pragma unroll 1
-    for (int d = 0; d < n; ++d)
-        gpd_pyb_drone_substep(P, st[d], rpm[d], drag_rpm[d],
-                              has_dw ? dw_total[d] : 0.0f, has_dw);
-    if (n > 1) gpd_pyb_pairs(P, st);
+    for (int i = 0; i < P.n_substeps; ++i) {
+        float* cur = sh + (i & 1) * buf;
+        const float* prev = sh + ((i + 1) & 1) * buf;
+        float dw_total = 0.0f;
+        if (has_dw) {
+#pragma unroll 1
+            for (int j = 0; j < n; ++j) {
+                if (j == d) continue;
+                const float src[3] = {GPD_POSE(prev, j, 0),
+                                      GPD_POSE(prev, j, 1),
+                                      GPD_POSE(prev, j, 2)};
+                dw_total = dw_total + gpd_downwash_term(y, src, s);
+            }
+        }
+        float drag_rpm[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+            drag_rpm[k] = (drag && i == 0) ? last[k] : rpm[k];
+        gpd_pyb_drone_substep(P, s, rpm, drag_rpm, dw_total, has_dw);
+        if (n == 1) continue;
+#pragma unroll
+        for (int k = 0; k < GPD_PS; ++k) GPD_POSE(cur, d, k) = s[k];
+        GPD_SYNC();
+        float rot_own[9], acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        gpd_rot_rows(s + 3, rot_own);
+#pragma unroll 1
+        for (int j = 0; j < n; ++j) {
+            if (j == d) continue;
+            float o[GPD_PS], rot_o[9];
+#pragma unroll
+            for (int k = 0; k < GPD_PS; ++k) o[k] = GPD_POSE(cur, j, k);
+            gpd_rot_rows(o + 3, rot_o);
+            // one call site for both orientations: the pair's first member
+            // is the lower index
+            const bool first = d < j;
+            float a[GPD_PS], b[GPD_PS], ra[9], rb[9];
+#pragma unroll
+            for (int k = 0; k < GPD_PS; ++k) {
+                a[k] = first ? s[k] : o[k];
+                b[k] = first ? o[k] : s[k];
+            }
+#pragma unroll
+            for (int k = 0; k < 9; ++k) {
+                ra[k] = first ? rot_own[k] : rot_o[k];
+                rb[k] = first ? rot_o[k] : rot_own[k];
+            }
+            float imp[3], r_i[3], r_j[3];
+            gpd_pair_impulse(P, a, b, ra, rb, imp, r_i, r_j);
+            float arm[3], own_imp[3], t[3], dw[3];
+#pragma unroll
+            for (int k = 0; k < 3; ++k) {
+                arm[k] = first ? r_i[k] : r_j[k];
+                own_imp[k] = first ? imp[k] : -imp[k];
+            }
+            gpd_cross(arm, own_imp, t);
+            gpd_iinv_w(rot_own, P.drone, t, dw);
+#pragma unroll
+            for (int k = 0; k < 3; ++k) {
+                acc[k] = acc[k] + own_imp[k];
+                acc[3 + k] = acc[3 + k] + dw[k];
+            }
+        }
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+            s[7 + k] = s[7 + k] + P.drone.inv_m * acc[k];
+            s[10 + k] = s[10 + k] + acc[3 + k];
+        }
+    }
+#undef GPD_POSE
 }
 
 // Running sums of a task's row_post over the drones of one env.
@@ -916,6 +981,15 @@ struct GpdPostAcc {
     float d2;        // Hover: squared distance of drone 0
     bool out_any;    // any scoring drone outside the box or tilted
     bool all_in;     // Routing: every drone within arrival_tol so far
+};
+
+// One drone's share of its task's row_post, taken by the drone's own thread
+// and summed over the drones of the env, in drone order, by gpd_post_add.
+struct GpdPostShare {
+    float r;         // reward
+    float x;         // Hover: squared distance; MultiHover: distance
+    bool out;        // outside the box or tilted (Routing: tilted)
+    bool in;         // Routing: within arrival_tol
 };
 
 GPD_HD void gpd_post_init(GpdPostAcc& acc) {
@@ -935,29 +1009,6 @@ GPD_HD void gpd_post_drone(const GpdStepParams& p, int d, float px, float py,
           (fabsf(roll) > p.tilt) | (fabsf(pitch) > p.tilt);
 }
 
-// HoverTask.row_post: drone 0 scores (reference envs/HoverAviary.py).
-GPD_HD void gpd_hover_row_post(const GpdStepParams& p, int d, float px,
-                               float py, float pz, float roll, float pitch,
-                               GpdPostAcc& acc) {
-    if (d != 0) return;
-    float r, d2; bool out;
-    gpd_post_drone(p, 0, px, py, pz, roll, pitch, r, d2, out);
-    acc.reward = r; acc.d2 = d2; acc.out_any = out;
-}
-
-// MultiHoverTask.row_post: summed reward, summed distance, any-drone
-// truncation (reference envs/MultiHoverAviary.py).
-GPD_HD void gpd_multihover_row_post(const GpdStepParams& p, int d, float px,
-                                    float py, float pz, float roll,
-                                    float pitch, GpdPostAcc& acc) {
-    float r, d2; bool out;
-    gpd_post_drone(p, d, px, py, pz, roll, pitch, r, d2, out);
-    const float dd = sqrtf(d2);
-    acc.reward = d == 0 ? r : acc.reward + r;
-    acc.dist_sum = d == 0 ? dd : acc.dist_sum + dd;
-    acc.out_any = acc.out_any | out;
-}
-
 // RoutingTask.row_post, one drone's share (envs/routing.py): progress
 // toward the destination gated off inside arrival_tol plus a hold bonus
 // (shaped), or -distance + 10 on arrival; all-arrived termination; any
@@ -965,46 +1016,78 @@ GPD_HD void gpd_multihover_row_post(const GpdStepParams& p, int d, float px,
 GPD_HD void gpd_routing_row_post(const GpdStepParams& p, int d, float px,
                                  float py, float pz, float vx, float vy,
                                  float vz, float roll, float pitch,
-                                 GpdPostAcc& acc) {
+                                 GpdPostShare& sh) {
     const float dx = p.target[d][0] - px, dy = p.target[d][1] - py,
                 dz = p.target[d][2] - pz;
     const float dist = sqrtf(dx * dx + dy * dy + dz * dz);
     const bool arrived = dist < p.arrival_tol;
     const float af = arrived ? 1.0f : 0.0f;
-    float r;
     if (p.shaped) {
         const float inv = 1.0f / fmaxf(dist, p.arrival_tol);
         const float prog = (vx * dx + vy * dy + vz * dz) * inv * p.ctrl_dt;
         const float hold = expf(-dist / p.arrival_tol);
-        r = p.progress_gain * prog * (1.0f - af) + p.arrival_hold * hold;
+        sh.r = p.progress_gain * prog * (1.0f - af) + p.arrival_hold * hold;
     } else {
-        r = -dist + 10.0f * af;
+        sh.r = -dist + 10.0f * af;
     }
-    acc.reward = d == 0 ? r : acc.reward + r;
-    acc.all_in = acc.all_in & arrived;
-    acc.out_any = acc.out_any | (fabsf(roll) > p.tilt)
-                  | (fabsf(pitch) > p.tilt);
+    sh.x = 0.0f;
+    sh.in = arrived;
+    sh.out = (fabsf(roll) > p.tilt) | (fabsf(pitch) > p.tilt);
 }
 
-// Position of drone j in one env's column `col` of a drone-major row block
-// (row stride `ld`, `per_drone` rows per drone).
-GPD_HD void gpd_col_pos(const float* col, size_t ld, int per_drone, int j,
-                        float* pos) {
-    const float* q = col + (size_t)j * per_drone * ld;
-    pos[0] = q[0]; pos[1] = q[ld]; pos[2] = q[2 * ld];
+// Drone d's share of its task's row_post from its STEPPED state:
+// s = [p3 q4 v3 ...].  Hover (reference envs/HoverAviary.py) and MultiHover
+// (envs/MultiHoverAviary.py) score the distance to target d; Routing as
+// above.
+GPD_HD void gpd_post_share(const GpdStepParams& p, int d, const float* s,
+                           GpdPostShare& sh) {
+    float roll, pitch, yaw;
+    gpd_quat_rpy(s[3], s[4], s[5], s[6], roll, pitch, yaw);
+    if (p.task_id == GPD_TASK_ROUTING) {
+        gpd_routing_row_post(p, d, s[0], s[1], s[2], s[7], s[8], s[9], roll,
+                             pitch, sh);
+        return;
+    }
+    float d2;
+    gpd_post_drone(p, d, s[0], s[1], s[2], roll, pitch, sh.r, d2, sh.out);
+    sh.x = p.task_id == GPD_TASK_HOVER ? d2 : sqrtf(d2);
+    sh.in = false;
+}
+
+// Adds drone d's share; called for d = 0, 1, ... in order.  Hover: drone 0
+// scores alone.  MultiHover: summed reward and distance, any-drone
+// truncation.  Routing: summed reward, all-arrived, any-drone tilt.
+GPD_HD void gpd_post_add(const GpdStepParams& p, int d,
+                         const GpdPostShare& sh, GpdPostAcc& acc) {
+    if (p.task_id == GPD_TASK_HOVER) {
+        if (d != 0) return;
+        acc.reward = sh.r; acc.d2 = sh.x; acc.out_any = sh.out;
+        return;
+    }
+    acc.reward = d == 0 ? sh.r : acc.reward + sh.r;
+    acc.dist_sum = d == 0 ? sh.x : acc.dist_sum + sh.x;
+    acc.out_any = acc.out_any | sh.out;
+    acc.all_in = acc.all_in & sh.in;
+}
+
+// Position of drone j of one env from an (n, 3, GPD_ENVS) block of
+// positions, `pos` pointing at the env's entry of drone 0's first row.
+GPD_HD void gpd_env_pos(const float* pos, int j, float* out) {
+    const float* q = pos + j * 3 * GPD_ENVS;
+    out[0] = q[0]; out[1] = q[GPD_ENVS]; out[2] = q[2 * GPD_ENVS];
 }
 
 // RoutingTask.row_post, the separation penalty over the STEPPED positions
-// parked in `col`: 10 per unordered pair closer than the collision radius
-// (twice 5: the tensor code counts both orders).
-GPD_HD void gpd_routing_pairs(const GpdStepParams& p, const float* col,
-                              size_t ld, int per_drone, GpdPostAcc& acc) {
+// `pos` of the env's drones: 10 per unordered pair closer than the
+// collision radius (twice 5: the tensor code counts both orders).
+GPD_HD void gpd_routing_pairs(const GpdStepParams& p, const float* pos,
+                              GpdPostAcc& acc) {
     for (int i = 0; i < p.n_drones; ++i) {
         float pi[3];
-        gpd_col_pos(col, ld, per_drone, i, pi);
+        gpd_env_pos(pos, i, pi);
         for (int j = i + 1; j < p.n_drones; ++j) {
             float pj[3];
-            gpd_col_pos(col, ld, per_drone, j, pj);
+            gpd_env_pos(pos, j, pj);
             const float dx = pi[0] - pj[0], dy = pi[1] - pj[1],
                         dz = pi[2] - pj[2];
             const float d2 = dx * dx + dy * dy + dz * dz;
@@ -1014,14 +1097,14 @@ GPD_HD void gpd_routing_pairs(const GpdStepParams& p, const float* col,
 }
 
 // RoutingTask.row_extra_obs of drone i from the SELECTED (post-reset)
-// positions in `col`: goal vector, then the displacement pos_j - pos_i to
-// the nearest neighbour on the squared distance.  Strict < over ascending
-// j: the lowest index wins a tie (the drones spawn on a line at equal
+// positions `pos`: goal vector, then the displacement pos_j - pos_i to the
+// nearest neighbour on the squared distance.  Strict < over ascending j:
+// the lowest index wins a tie (the drones spawn on a line at equal
 // spacing).  A lone drone gets zeros.
-GPD_HD void gpd_routing_extra_obs(const GpdStepParams& p, const float* col,
-                                  size_t ld, int per_drone, int i, float* e) {
+GPD_HD void gpd_routing_extra_obs(const GpdStepParams& p, const float* pos,
+                                  int i, float* e) {
     float pi[3];
-    gpd_col_pos(col, ld, per_drone, i, pi);
+    gpd_env_pos(pos, i, pi);
     e[0] = p.target[i][0] - pi[0];
     e[1] = p.target[i][1] - pi[1];
     e[2] = p.target[i][2] - pi[2];
@@ -1032,7 +1115,7 @@ GPD_HD void gpd_routing_extra_obs(const GpdStepParams& p, const float* col,
     for (int j = 0; j < p.n_drones; ++j) {
         if (j == i) continue;
         float pj[3];
-        gpd_col_pos(col, ld, per_drone, j, pj);
+        gpd_env_pos(pos, j, pj);
         const float dx = pj[0] - pi[0], dy = pj[1] - pi[1],
                     dz = pj[2] - pi[2];
         const float d2 = dx * dx + dy * dy + dz * dz;

@@ -66,6 +66,15 @@ __global__ void pid_dyn_ctrl_step_kernel(const float* __restrict__ state,
 
 extern "C" int gpd_params_size() { return (int)sizeof(GpdStepParams); }
 
+// Blocks and threads per block of the launch gpd_pid_dyn_ctrl_step makes over B
+// columns, one (env, drone) each: 128 threads a block.  `n` is not read.
+extern "C" void gpd_pid_dyn_ctrl_step_geometry(int B, int n, int* blocks,
+                                               int* threads) {
+    (void)n;
+    *threads = 128;
+    *blocks = (B + *threads - 1) / *threads;
+}
+
 // Launches on `stream`, does not synchronise, allocates nothing.  All
 // blocks share the row stride `ld` (elements between rows).  `obs12` may be
 // NULL.  Returns cudaGetLastError().
@@ -75,8 +84,8 @@ extern "C" int gpd_pid_dyn_ctrl_step(const float* state, const float* pid_in,
                                      float* obs12, int B, int ld,
                                      const GpdStepParams* p, void* stream) {
     if (B <= 0) return 0;
-    const int threads = 128;
-    const int blocks = (B + threads - 1) / threads;
+    int blocks, threads;
+    gpd_pid_dyn_ctrl_step_geometry(B, 1, &blocks, &threads);
     pid_dyn_ctrl_step_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         state, pid_in, tgt_in, out, pid_out, rpm_out, obs12, B, ld, *p);
     return (int)cudaGetLastError();

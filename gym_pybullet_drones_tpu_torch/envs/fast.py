@@ -8,7 +8,8 @@ configuration used by benchmarks and large-scale training.  Two entry points:
   step is ONE kernel launch over the flattened batch: for DYN
   `ops/kernel_dyn.py` (for the PID-family actions the embedded DSL-PID
   tick and the physics together, `ops/kernel_pid.py`), for the PYB family
-  `ops/kernel_env.py`, one thread per env, with or without the PID tick;
+  `ops/kernel_env.py`, one thread per (env, drone), with or without the
+  PID tick;
   the task logic
   (action mapping or PID setpoints, obs, reward, termination, auto-reset)
   is tensor code on the same flat leaves via the tasks' `_map_to_rpm` /

@@ -5,21 +5,23 @@ substeps per drone), optional obs12 — in one launch.
 
 Replaces the TPU kernel `gym_pybullet_drones_tpu/ops/pallas_env.py:
 env_ctrl_step` (bodies `_kernel`, `_pyb_substep_all`).  Source:
-`csrc/env_ctrl_step.cu`; the coupled substep is the device function
-`gpd_pyb_substep_all` in `csrc/drone_kernels.cuh`, which
+`csrc/env_ctrl_step.cu`; the coupled substeps are the device function
+`gpd_pyb_ctrl_substeps` in `csrc/drone_kernels.cuh`, which
 `csrc/fused_env_step.cu` calls as well.
 
 The PYB-family modes couple the drones of an env — downwash needs every
 drone's PRE-substep position, drone-drone contact every drone's post-step
-pose — so one THREAD owns one env and loops over its drones, where the DYN
-kernels give every (env x drone) column its own thread.  Per substep and
-drone: forces and torques from the pre-substep state (per-motor thrust,
+pose.  One thread owns one (env, drone); a block holds 32 envs of N drones,
+warp w being drone w, and the drones of an env exchange their poses through
+shared memory with a barrier per substep.  Per substep and drone: forces and torques from the pre-substep state (per-motor thrust,
 paired factored torque differences, ground effect, drag with the stale rpm,
 downwash), semi-implicit velocity update with the gyroscopic bias and
 damping, a projected Gauss-Seidel contact solve on the pre-substep pose (4
 rim points against the ground plus one centred contact per sphere or box
-obstacle), position and world-frame quaternion update; then, after ALL
-drones, the cylinder-manifold drone-drone contact, each unordered pair once.
+obstacle), position and world-frame quaternion update; then, once ALL
+drones have stepped, the cylinder-manifold drone-drone contact: each thread
+computes every pair its drone belongs to, in the pair's (lower, higher)
+orientation, so both members get the same impulse.
 
 Blocks are the packed column-per-(env x drone) rows of `ops/kernel_dyn.py`
 and `ops/kernel_pid.py`, drone `d` of env `e` in column `e*N + d`:
@@ -31,8 +33,9 @@ and `ops/kernel_pid.py`, drone `d` of env `e` in column `e*N + d`:
     -> state' (16, B*N), rpm (4, B*N) [, pid' (9, B*N)] [, obs12 (12, B*N)]
 
 The TPU kernel takes drone-major (N*k, B) rows, which its wrapper builds
-with a transpose per leaf and undoes with a copy per output.  Here a thread
-reads its N columns with a stride of N floats instead: the outputs stay
+with a transpose per leaf and undoes with a copy per output.  Here a warp
+reads its columns with a stride of N floats instead (the block's other
+warps use the rest of each line through L1): the outputs stay
 transposed VIEWS of the kernel's blocks, and a step costs the same two
 tensor operations per input as the DYN kernels' wrappers (one `cat`, one
 transposing copy) and none per output.
@@ -40,24 +43,23 @@ transposing copy) and none per output.
 What bounds it on an H100: operations.  A drone substep needs around 3,000
 float32 operations (the contact solve alone holds 12 effective masses and
 4 sweeps x 4 points x 3 directions) against some 60 floats moved per drone
-and control step, so the operation bound exceeds the byte bound, and with
-one thread per env the dependent chain of one env — not either bound — sets
-the time.  The design is the simple one: all drones' live state (13 floats
-each), rpm, downwash sums and pair-impulse sums sit in per-thread local
-arrays indexed at run time (local memory through L1, interleaved across the
-threads of a warp, so its traffic is coalesced); a shared-memory scratch
-would hold the same bytes with more bookkeeping, and parking the state in
-the output column between substeps would move it through global memory 8
-times per step.  The loops over substeps, drones, sweeps, obstacles and
-pairs stay rolled; only the 4 rim points and the 2 tangents are unrolled,
-so the solve's per-point arrays live in registers.  The sweep count is a
-run-time value of the parameter struct: any `solver_iterations` that
-`envs/core.step` takes runs through the kernel as well (the TPU kernel
-unrolls exactly 4 and sends other values down another path).
+and control step, so the operation bound exceeds the byte bound, and the
+dependent chain of one thread — not either bound — sets the time.  The
+design shortens that chain: one drone's state, rpm and stale rpm in
+registers (no array is indexed at run time, so nothing sits in local
+memory), each pair computed by both of its members (N-1 pairs on a thread's
+chain instead of N(N-1)/2), and 32 envs a block, so 4096 envs fill 128
+blocks.  The loops over substeps, sweeps and partners stay rolled; the 4 rim
+points, the 2 tangents and the obstacle table (up to its capacity of 8) are
+unrolled.  The sweep count is a run-time value of the parameter struct: any
+`solver_iterations` that `envs/core.step` takes runs through the kernel as
+well (the TPU kernel unrolls exactly 4 and sends other values down another
+path).
 
 Arithmetic order is the TPU kernel's, not `ops/rigid_body.py`'s: the world
-inverse inertia is applied as R (J^-1 (R^T v)), and each unordered drone
-pair is computed once with `-imp` to the partner.
+inverse inertia is applied as R (J^-1 (R^T v)); each drone adds its pair
+impulses in the order of a loop over unordered pairs (i, j), i < j, with
+`-imp` to the partner.
 
 `pyb_substep_rows` / `env_ctrl_step_plain` are the same row arithmetic in
 plain PyTorch.  The wrapper uses them only for tensors that lie on the CPU;
@@ -196,8 +198,8 @@ def pyb_substep_rows(params: DroneParams, physics: Physics, dt: float,
 
     drones: list of dicts with row lists p[3], q[4], v[3], w[3] (world
     angular velocity); rpm / drag_rpm: per-drone lists of 4 rows.  Mutates
-    `drones`.  Mirrors the device function `gpd_pyb_substep_all` line by
-    line; change them together.
+    `drones`.  Mirrors the device functions under `gpd_pyb_ctrl_substeps`
+    line by line; change them together.
     """
     n = len(drones)
     kf, km = params.kf, params.km

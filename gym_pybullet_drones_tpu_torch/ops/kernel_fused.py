@@ -29,33 +29,36 @@ never last_rpm, ang_v or the dropped oldest action), every carry row is
 written once, each action row read once, each output row written once, around
 a few thousand float32 operations per env — and, at thousands of envs, the
 launch overhead above both.  The design: one launch per control step, one
-thread per env, a drone's 16 state values in registers through all
-substeps, every load and store coalesced.  The action-history ring (60
-rows for RPM at 30 Hz control) moves through memory row by row and never
-through registers.  The drones of an env are stepped one after the other;
-their stepped state, applied rpm and new PID rows wait in the output block
-(the thread re-reads its own column) until the env's done flag is known;
-routing's pairwise terms re-read the parked positions from there as well.
-For the PID family the per-drone chain grows by the PID tick (about 400
-operations, with divisions, square roots and inverse trig) before the
-substeps.  No lane padding, no blocking:
-the kernel takes B and the row stride and masks its tail.  All constants
-(drone, substeps, dt, action type, task, per-drone reset state and
-targets, box limits, episode length) arrive in one by-value struct, so one
-build serves every configuration.
+thread per (env, drone), 32 envs of N drones a block with warp w holding
+drone w, so every row load and store of a warp is one 128-byte line and
+4096 envs fill 128 blocks.  A drone's 16 state values stay in registers
+through all substeps; its share of the task's sums and its stepped position
+go to shared memory, where one thread per env adds them in drone order (the
+order of a loop over drones, so the reward is the same float) and publishes
+the done flag; each thread then selects the reset state for a done env and
+writes its own drone's carry and observation rows.  The action-history ring
+(60 rows for RPM at 30 Hz control) moves from the input to the output
+blocks, its loads issued 16 at a time.  Routing's pairwise terms read the
+positions shared by the env's other drones.  For the PID family the
+per-drone chain grows by the PID tick (about 400 operations, with
+divisions, square roots and inverse trig) before the substeps.  No lane
+padding: the kernel takes B and the row stride and masks its tail (a thread
+past B goes through every barrier and loads and stores nothing).  All
+constants (drone, substeps, dt, action type, task, per-drone reset state
+and targets, box limits, episode length) arrive in one by-value struct, so
+one build serves every configuration.
 
 Under the PYB family the physics is the coupled substep of
-`ops/kernel_env.py` (device function `gpd_pyb_substep_all`, the same one
-`csrc/env_ctrl_step.cu` calls): every drone's action becomes rpm first, all
-drones' live state waits in per-thread local arrays through the substeps,
-then the parking, the task sums and pass 2 follow as for DYN.  There the
-step also reads the `last_rpm` rows (the stale drag of substep 0; zero
-after an auto-reset) and the world `ang_v` rows, which are carried state;
-the `rpy_rates` rows pass through.  What bounds that branch is operations,
-not bytes: around 3,000 per drone and substep, in one thread's dependent
-chain.  It is a run-time branch of the one kernel.  `cfg.solver_iterations`
-is a run-time value of the struct: any sweep count `envs/core.step` takes
-runs here as well.
+`ops/kernel_env.py` (device function `gpd_pyb_ctrl_substeps`, the same one
+`csrc/env_ctrl_step.cu` calls): the drones of an env exchange their poses
+through shared memory at a barrier per substep.  There the step also reads
+the `last_rpm` rows (the stale drag of substep 0; zero after an auto-reset)
+and the world `ang_v` rows, which are carried state; the `rpy_rates` rows
+pass through.  What bounds that branch is operations, not bytes: around
+3,000 per drone and substep, in one thread's dependent chain.  It is a
+run-time branch of the one kernel.  `cfg.solver_iterations` is a run-time
+value of the struct: any sweep count `envs/core.step` takes runs here as
+well.
 
 `fused_env_step_plain` is the same row arithmetic in plain PyTorch.  The
 wrapper uses it only for tensors that lie on the CPU; on a CUDA tensor it

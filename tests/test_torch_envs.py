@@ -115,7 +115,10 @@ def test_step_autoreset_batched_matches_jax_vmap():
         _close(getattr(tout[0], k), getattr(jout[0], k), k)
 
 
-def test_unported_parts_say_so():
+def test_pyb_matches_jax_and_rgb_and_noise_raise():
+    """PYB_DW and the routing configuration's default physics (PYB) step as
+    in the JAX package; RGB observations and randomized resets, which the
+    port does not have, raise."""
     import dataclasses
     from gym_pybullet_drones_tpu.envs import (
         make_routing_config as j_routing_config)

@@ -166,7 +166,7 @@ def test_fused_rejects_ineligible(why):
         tfast.make_fused_rollout(tcfg, task, 4, device="cpu", **kw)
 
 
-def test_other_physics_not_implemented():
+def test_pyb_hover_through_both_entry_points():
     """The PYB family goes through both entry points: a Hover step under
     PYB (the spawn 0.1 m over the ground) gives the JAX package's XLA
     result, at tests/test_fused.py's tolerance."""

@@ -274,7 +274,7 @@ def test_routing_rollout_tilts_and_resets(entry):
     assert _rollout(getattr(tfast, entry), B, steps=10, scale=0.3, seed=8)
 
 
-def test_pyb_default_is_not_ported():
+def test_routing_pyb_default_matches_jax():
     """`make_routing_config()` with no arguments — four drones, PYB
     physics — runs through both entry points and gives the JAX package's
     XLA result."""
