@@ -383,10 +383,11 @@ def main():
 
     # ---- build ----
     _build.load()
+    ptxas = {name: ptxas_figures(log)
+             for name, log in _build.build_log.items()}
     emit({"phase": "build", "seconds": round(_build.build_seconds, 3),
           "sources": sorted(src for src, _ in _build.KERNELS.values()),
-          "ptxas": {name: ptxas_figures(log)
-                    for name, log in _build.build_log.items()}})
+          "ptxas": ptxas})
 
     def hover_cfg(n=1):
         return AviaryConfig(P.CF2X, n, Physics.DYN, 240, 30)
@@ -396,16 +397,34 @@ def main():
     rng = np.random.default_rng(SEED)
     checks, geometry_records, summary = [], [], {}
 
-    def dyn_case(model, b, emit_obs12, timed=None):
-        s = rand_state_rows(rng, b)
+    # The launch floor: a one-element in-place add under the same 50-node
+    # graph harness, the least time one dependent graph node takes on this
+    # card.  A yardstick only; the port never runs it.
+    one = torch.zeros(1, device=dev)
+    launch_floor_ms = graph_ms(lambda: one.add_(1.0))
+
+    def floors(make_run):
+        """`one_warp_ms` (B = 32: one block of one warp: the launch, one
+        memory round trip and one thread's chain) and `columns_ms` (B =
+        4096, 16384, 65536: where columns start to cost) of the launches
+        `make_run(b)` makes."""
+        return {"one_warp_ms": graph_ms(make_run(32)),
+                "columns_ms": {str(b): graph_ms(make_run(b))
+                               for b in (4096, 16384, 65536)}}
+
+    def dyn_inputs(gen, model, b):
+        s = rand_state_rows(gen, b)
         s[10:13, :4] = 0.0                       # zero rates: keep branch
-        rpm = model.hover_rpm * (1 + 0.02 * rng.normal(size=(4, b)))
+        rpm = model.hover_rpm * (1 + 0.02 * gen.normal(size=(4, b)))
         rpm[:, :4] = model.hover_rpm             # and no torque
-        s = torch.from_numpy(s).to(dev)
-        rpm = torch.from_numpy(rpm.astype(np.float32)).to(dev)
-        run = lambda: kernel_dyn.dyn_ctrl_step_rows(model, s, rpm, SUB, DT,
+        return (torch.from_numpy(s).to(dev),
+                torch.from_numpy(rpm.astype(np.float32)).to(dev))
+
+    def dyn_case(model, b, emit_obs12, timed=None, n_sub=SUB, gen=None):
+        s, rpm = dyn_inputs(gen or rng, model, b)
+        run = lambda: kernel_dyn.dyn_ctrl_step_rows(model, s, rpm, n_sub, DT,
                                                     emit_obs12)
-        plain = lambda: kernel_dyn.dyn_ctrl_step_plain(model, s, rpm, SUB,
+        plain = lambda: kernel_dyn.dyn_ctrl_step_plain(model, s, rpm, n_sub,
                                                        DT, emit_obs12)
         got, ref = run(), plain()
         torch.cuda.synchronize()
@@ -417,9 +436,10 @@ def main():
             err = check_close("dyn_ctrl_step state", got, ref)
         if not torch.equal(got[3:7, :4], s[3:7, :4]):
             raise AssertionError("keep branch: quaternion changed at zero "
-                                 "rates")
+                                 f"rates ({n_sub} substeps)")
         rec = {"kernel": "dyn_ctrl_step", "model": model.model.value, "B": b,
-               "emit_obs12": emit_obs12, "max_abs_err": err,
+               "n_substeps": n_sub, "emit_obs12": emit_obs12,
+               "max_abs_err": err,
                "geometry": _build.launch_geometry("dyn_ctrl_step", b)}
         if timed:
             # 13 state rows (no ang-vel) and 4 rpm rows in, 16 (+12) out
@@ -438,20 +458,24 @@ def main():
                      else None)
     dyn_case(P.CF2X, 2 * 8192, True, timed="multihover2x8192")
 
-    def rand_pid_rows(b):
+    def rand_pid_rows(b, gen=None):
         """(9, b) PID scratch: last rpy, position and attitude integrals."""
-        return (rng.normal(size=(9, b)) * np.repeat(
+        return ((gen or rng).normal(size=(9, b)) * np.repeat(
             [0.05, 0.01, 0.1], 3)[:, None]).astype(np.float32)
 
-    def pid_case(pid_model, dyn_model, b, emit_obs12, timed=None):
-        s = torch.from_numpy(rand_state_rows(rng, b)).to(dev)
-        pid = torch.from_numpy(rand_pid_rows(b)).to(dev)
+    def pid_inputs(gen, b):
+        s = torch.from_numpy(rand_state_rows(gen, b)).to(dev)
+        pid = torch.from_numpy(rand_pid_rows(b, gen)).to(dev)
         tgt = np.zeros((12, b))
-        tgt[0:3] = rng.normal(size=(3, b)) * 0.5 + [[0.0], [0.0], [1.0]]
-        tgt[5] = rng.normal(size=b) * 0.5          # target yaw
-        tgt[6:9] = rng.normal(size=(3, b)) * 0.2
-        tgt = torch.from_numpy(tgt.astype(np.float32)).to(dev)
-        args = (pid_model, dyn_model, s, pid, tgt, SUB, DT, CTRL_DT,
+        tgt[0:3] = gen.normal(size=(3, b)) * 0.5 + [[0.0], [0.0], [1.0]]
+        tgt[5] = gen.normal(size=b) * 0.5          # target yaw
+        tgt[6:9] = gen.normal(size=(3, b)) * 0.2
+        return s, pid, torch.from_numpy(tgt.astype(np.float32)).to(dev)
+
+    def pid_case(pid_model, dyn_model, b, emit_obs12, timed=None, n_sub=SUB,
+                 gen=None):
+        s, pid, tgt = pid_inputs(gen or rng, b)
+        args = (pid_model, dyn_model, s, pid, tgt, n_sub, DT, CTRL_DT,
                 emit_obs12)
         run = lambda: kernel_pid.pid_dyn_ctrl_step_rows(*args)
         plain = lambda: kernel_pid.pid_dyn_ctrl_step_plain(*args)
@@ -463,7 +487,7 @@ def main():
                     ("state", "pid rows", "rpm", "obs12"), got, ref, tols)]
         rec = {"kernel": "pid_dyn_ctrl_step",
                "pid_model": pid_model.model.value,
-               "model": dyn_model.model.value, "B": b,
+               "model": dyn_model.model.value, "B": b, "n_substeps": n_sub,
                "emit_obs12": emit_obs12,
                "max_abs_err": max(errs[:2] + errs[3:]),
                "max_abs_err_rpm": errs[2],
@@ -484,6 +508,30 @@ def main():
             pid_case(P.CF2X, model, 4096, emit_obs12)
     pid_case(P.CF2P, P.CF2P, 4096, True)             # the + PWM mixer
     pid_case(P.CF2X, P.CF2X, 4 * 4096, True, timed="routing4x4096")
+
+    # Both DYN kernels at other substep counts: 1 (240 Hz control) and 5,
+    # at the main path's widths, from a stream of their own (the later
+    # checks keep their inputs), and their floors at 8 substeps.
+    gen = np.random.default_rng(SEED + 3)
+    for n_sub in (1, 5):
+        for b in (4096, 4 * 4096):
+            dyn_case(P.CF2X, b, True, n_sub=n_sub, gen=gen)
+            pid_case(P.CF2X, P.CF2X, b, True, n_sub=n_sub, gen=gen)
+        pid_case(P.CF2P, P.CF2P, 4096, True, n_sub=n_sub, gen=gen)
+
+    def dyn_run(b):
+        s, rpm = dyn_inputs(gen, P.CF2X, b)
+        return lambda: kernel_dyn.dyn_ctrl_step_rows(P.CF2X, s, rpm, SUB, DT,
+                                                     True)
+
+    def pid_run(b):
+        args = (P.CF2X, P.CF2X, *pid_inputs(gen, b), SUB, DT, CTRL_DT, True)
+        return lambda: kernel_pid.pid_dyn_ctrl_step_rows(*args)
+
+    dyn_floors, pid_floors = floors(dyn_run), floors(pid_run)
+    # the PID tick's share of a one-warp launch
+    pid_floors["tick_ms"] = (pid_floors["one_warp_ms"]
+                             - dyn_floors["one_warp_ms"])
 
     def dw_tie(pos):
         """(n, 3, b) positions -> (b,) bool: some pair of the env's drones
@@ -990,10 +1038,23 @@ def main():
                geometry=True)
     torch.cuda.synchronize()
     emit({"phase": "kernel_checks", "atol": ATOL, "rtol": RTOL,
+          "launch_floor_ms": launch_floor_ms,
+          "floors": {"dyn_ctrl_step": dyn_floors,
+                     "pid_dyn_ctrl_step": pid_floors},
           "cases": checks, "geometry": geometry_records,
           "geometry_seconds": time.perf_counter() - t_geometry})
 
     # ---- the main path ----
+    def resting_warps(rates, a):
+        """Warps of 32 consecutive columns in which some column starts the
+        step with body rates exactly 0 under one RPM action on all four
+        motors: no torque moves it, so its rates stay 0 through every
+        substep, the input on which `sqrtf` takes its slow path (the
+        kernels raise it to 1e-20 first).  `rates` (3, cols), `a`
+        (cols, 4) -> the count of such warps, on the card."""
+        rest = (rates == 0).all(dim=0) & (a == a[:, :1]).all(dim=1)
+        return rest.reshape(-1, 32).any(dim=1).sum()
+
     def random_rollout(name, cfg, task, b, steps, compare_steps=32,
                        scale=0.1):
         """`steps` control steps of scale*N(0,1) actions through the fused
@@ -1037,9 +1098,16 @@ def main():
         chk = torch.zeros((), device=dev)
         n_done = torch.zeros((), device=dev)
         kept, kept_carry = [], []
+        # resting columns: the DYN kernels' RPM paths
+        count_rest = not pyb and task.act == ActionType.RPM
+        rest_fused = rest_batched = torch.zeros((), device=dev)
         for t in range(steps):
             if has_pid and t < compare_steps:
                 kept_carry.append(carry)
+            if count_rest:
+                for d in range(n):
+                    rest_fused = rest_fused + resting_warps(
+                        carry[d * per + 10:d * per + 13], acts[t][:, d])
             carry, obs, reward, term, trunc = step_fn(carry, acts[t])
             chk = chk + obs.sum() + reward.sum()
             n_done = n_done + (term | trunc).sum()
@@ -1077,6 +1145,9 @@ def main():
             if has_pid:
                 state = convert.env_state_from_fused_carry(
                     kept_carry[t], n, task.act)
+            if count_rest:
+                rest_batched = rest_batched + resting_warps(
+                    state.rpy_rates.t(), acts[t].reshape(b * n, A))
             state, bo, br, bte, btr = b_step(state, acts[t])
             fo, fr, fte, ftr = kept[t]
             differ = (bte != fte) | (btr != ftr)
@@ -1119,6 +1190,12 @@ def main():
         out = {"steps": steps, "envs": b, "resets": int(n_done),
                "fused_vs_batched_steps": compare_steps,
                "fused_vs_batched_max_abs_err": err}
+        if count_rest:
+            # share of the launches' warps that hold a resting column
+            out["resting_warp_share"] = {
+                "fused_env_step": float(rest_fused) / (steps * n * b / 32),
+                "dyn_ctrl_step": float(rest_batched)
+                / (compare_steps * n * b / 32)}
         if has_pid:
             out["fused_vs_batched_flag_ties"] = flag_ties
             # for the record, held to no tolerance: the first 8 steps free
@@ -1145,7 +1222,9 @@ def main():
     ident = torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev)[:, None]
     symmetric = torch.ones((), dtype=torch.bool, device=dev)
     all_tr, any_tr, any_te = [], [], []
+    rest = torch.zeros((), device=dev)
     for t in range(300):
+        rest = rest + resting_warps(carry[10:13], zero[:, 0])
         carry, obs, reward, term, trunc = step_fn(carry, zero)
         symmetric &= (carry[0:2] == 0).all() & (carry[3:7] == ident).all() \
             & (reward == reward[0]).all() & (obs[:, 0:2] == 0).all()
@@ -1163,7 +1242,8 @@ def main():
     if kernel_fused.launches != 300:
         raise AssertionError("zero actions: launch count")
     hover = {"phase": "rollout_hover", "zero_action_trunc_steps": trunc_steps,
-             "bitwise_symmetric": True}
+             "bitwise_symmetric": True,
+             "zero_action_resting_warp_share": float(rest) / (300 * b / 32)}
     hover.update(random_rollout("hover4096", cfg, task, b, 512))
     hover_counts = {"dyn_ctrl_step": kernel_dyn.launches,
                     "fused_env_step": kernel_fused.launches}
@@ -1360,6 +1440,8 @@ def main():
             "gym_pybullet_drones_tpu/ops/pallas_fused.py:230",
         "env_ctrl_step":
             "gym_pybullet_drones_tpu/ops/pallas_env.py:588"}
+    kernel_floors = {"dyn_ctrl_step": dyn_floors,
+                     "pid_dyn_ctrl_step": pid_floors}
     kernels = []
     for config, counts in (("hover4096", hover_counts),
                            ("multihover2x8192", multi_counts),
@@ -1377,7 +1459,11 @@ def main():
                 "plain_ms": rec["plain_ms"],
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                 "library_ms": None, "blocks": rec["geometry"][0],
-                "threads": rec["geometry"][1]})
+                "threads": rec["geometry"][1],
+                "registers": ptxas.get(name, {}).get("registers")})
+            if name in kernel_floors:
+                kernels[-1].update(launch_floor_ms=launch_floor_ms,
+                                   **kernel_floors[name])
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {

@@ -38,6 +38,9 @@
 #define GPD_PR 9   // embedded-PID carry rows per drone (PID-family actions)
 #define GPD_TR 12  // PID setpoint rows: target pos, rpy, vel, rpy rates
 #define GPD_ENVS 32  // envs per block: warp w of a block is drone w of them
+// Threads per block of dyn_ctrl_step and pid_dyn_ctrl_step, one column
+// each (PERF.md: 32 / 64 / 128 measured, scripts/dyn_launch_sweep.py).
+#define GPD_DYN_THREADS 64
 
 enum {
     GPD_ACT_RPM = 0, GPD_ACT_ONE_D_RPM = 1,
@@ -149,78 +152,102 @@ GPD_HD void gpd_motor_mix(const GpdDrone& c, float r0, float r1, float r2,
     }
 }
 
+// One explicit-dynamics substep on one column, state in registers.
+// x = [px py pz | qx qy qz qw | vx vy vz | wx wy wz]; r receives the
+// PRE-step rotation rows (row-major), which the stored world angular
+// velocity reads after the last substep.
+// Semantics: reference BaseAviary.py:815-889.
+GPD_HD void gpd_dyn_substep(const GpdDrone& c, float dt, float half_dt,
+                            float* x, float thrust, float xt, float yt,
+                            float zt, float* r) {
+    float px = x[0], py = x[1], pz = x[2];
+    float qx = x[3], qy = x[4], qz = x[5], qw = x[6];
+    float vx = x[7], vy = x[8], vz = x[9];
+    float wx = x[10], wy = x[11], wz = x[12];
+    // rotation matrix from the (normalized) quaternion
+    const float n2 = qx * qx + qy * qy + qz * qz + qw * qw;
+    const float inv_n2 = 1.0f / n2;
+    const float xx = qx * qx * inv_n2, yy = qy * qy * inv_n2,
+                zz = qz * qz * inv_n2;
+    const float xy = qx * qy * inv_n2, xz = qx * qz * inv_n2,
+                yz = qy * qz * inv_n2;
+    const float wxq = qw * qx * inv_n2, wyq = qw * qy * inv_n2,
+                wzq = qw * qz * inv_n2;
+    r[0] = 1.0f - 2.0f * (yy + zz); r[1] = 2.0f * (xy - wzq);
+    r[2] = 2.0f * (xz + wyq);
+    r[3] = 2.0f * (xy + wzq); r[4] = 1.0f - 2.0f * (xx + zz);
+    r[5] = 2.0f * (yz - wxq);
+    r[6] = 2.0f * (xz - wyq); r[7] = 2.0f * (yz + wxq);
+    r[8] = 1.0f - 2.0f * (xx + yy);
+
+    const float fx = r[2] * thrust;
+    const float fy = r[5] * thrust;
+    const float fz = r[8] * thrust - c.gm;
+    // tau -= w x (J w)
+    const float tau_x = xt - (wy * (c.jz * wz) - wz * (c.jy * wy));
+    const float tau_y = yt - (wz * (c.jx * wx) - wx * (c.jz * wz));
+    const float tau_z = zt - (wx * (c.jy * wy) - wy * (c.jx * wx));
+
+    vx = vx + dt * fx * c.inv_m;
+    vy = vy + dt * fy * c.inv_m;
+    vz = vz + dt * fz * c.inv_m;
+    wx = wx + dt * tau_x * c.inv_jx;
+    wy = wy + dt * tau_y * c.inv_jy;
+    wz = wz + dt * tau_z * c.inv_jz;
+    px = px + dt * vx;
+    py = py + dt * vy;
+    pz = pz + dt * vz;
+
+    // exact exponential-map quaternion update (body rates); the
+    // quaternion is kept as it is when ||w|| <= 1e-8.  The square root's
+    // argument is raised to 1e-20 first, which keeps the quaternion all the
+    // same (||w|| <= 1e-10) and keeps every other output: sqrtf of 0 (a body
+    // at rest) takes the IEEE square root's slow path, which a warp holding
+    // one such column waits for at every substep.  NaN stays NaN.
+    const float w2 = wx * wx + wy * wy + wz * wz;
+    const float norm = sqrtf(w2 < 1e-20f ? 1e-20f : w2);
+    const float theta = norm * half_dt;
+    // one argument reduction for both: sincosf gives sinf's and cosf's
+    // values bit for bit (every float32 input, scripts/sincos_identity.py)
+    float sin_theta, cth;
+    sincosf(theta, &sin_theta, &cth);
+    const float safe = norm > 0.0f ? norm : 1.0f;
+    const float sth = sin_theta / safe;
+    const float nqx = cth * qx + sth * (wz * qy - wy * qz + wx * qw);
+    const float nqy = cth * qy + sth * (-wz * qx + wx * qz + wy * qw);
+    const float nqz = cth * qz + sth * (wy * qx - wx * qy + wz * qw);
+    const float nqw = cth * qw + sth * (-wx * qx - wy * qy - wz * qz);
+    if (!(norm <= 1e-8f)) {
+        qx = nqx; qy = nqy; qz = nqz; qw = nqw;
+    }
+    x[0] = px; x[1] = py; x[2] = pz;
+    x[3] = qx; x[4] = qy; x[5] = qz; x[6] = qw;
+    x[7] = vx; x[8] = vy; x[9] = vz;
+    x[10] = wx; x[11] = wy; x[12] = wz;
+}
+
 // n explicit-dynamics substeps on one column, state in registers.
 // s = [px py pz | qx qy qz qw | vx vy vz | wx wy wz | avx avy avz]; the
 // last three are outputs only (stored world angular velocity).
-// Semantics: reference BaseAviary.py:815-889.
+//
+// Runs `n_substeps` (at least 1) of the body above in a loop counted at
+// run time, the last one peeled: the first n - 1 drop their rotation, the
+// last one's makes the world angular velocity, once.  Unrolling the loop
+// does not let consecutive substeps overlap: every IEEE division, square
+// root and sine/cosine reduction is a branch region around its slow path,
+// and the compiler does not schedule across those regions (PERF.md,
+// scripts/dyn_launch_sweep.py), so the loop stays rolled.
 GPD_HD void gpd_dyn_substeps(const GpdDrone& c, int n_substeps, float dt,
                              float half_dt, float* s, float thrust, float xt,
                              float yt, float zt) {
-    float px = s[0], py = s[1], pz = s[2];
-    float qx = s[3], qy = s[4], qz = s[5], qw = s[6];
-    float vx = s[7], vy = s[8], vz = s[9];
-    float wx = s[10], wy = s[11], wz = s[12];
-    float avx = s[13], avy = s[14], avz = s[15];
-    for (int i = 0; i < n_substeps; ++i) {
-        // rotation matrix from the (normalized) quaternion
-        const float n2 = qx * qx + qy * qy + qz * qz + qw * qw;
-        const float inv_n2 = 1.0f / n2;
-        const float xx = qx * qx * inv_n2, yy = qy * qy * inv_n2,
-                    zz = qz * qz * inv_n2;
-        const float xy = qx * qy * inv_n2, xz = qx * qz * inv_n2,
-                    yz = qy * qz * inv_n2;
-        const float wxq = qw * qx * inv_n2, wyq = qw * qy * inv_n2,
-                    wzq = qw * qz * inv_n2;
-        const float r00 = 1.0f - 2.0f * (yy + zz), r01 = 2.0f * (xy - wzq),
-                    r02 = 2.0f * (xz + wyq);
-        const float r10 = 2.0f * (xy + wzq), r11 = 1.0f - 2.0f * (xx + zz),
-                    r12 = 2.0f * (yz - wxq);
-        const float r20 = 2.0f * (xz - wyq), r21 = 2.0f * (yz + wxq),
-                    r22 = 1.0f - 2.0f * (xx + yy);
-
-        const float fx = r02 * thrust;
-        const float fy = r12 * thrust;
-        const float fz = r22 * thrust - c.gm;
-        // tau -= w x (J w)
-        const float tau_x = xt - (wy * (c.jz * wz) - wz * (c.jy * wy));
-        const float tau_y = yt - (wz * (c.jx * wx) - wx * (c.jz * wz));
-        const float tau_z = zt - (wx * (c.jy * wy) - wy * (c.jx * wx));
-
-        vx = vx + dt * fx * c.inv_m;
-        vy = vy + dt * fy * c.inv_m;
-        vz = vz + dt * fz * c.inv_m;
-        wx = wx + dt * tau_x * c.inv_jx;
-        wy = wy + dt * tau_y * c.inv_jy;
-        wz = wz + dt * tau_z * c.inv_jz;
-        px = px + dt * vx;
-        py = py + dt * vy;
-        pz = pz + dt * vz;
-
-        // exact exponential-map quaternion update (body rates); the
-        // quaternion is kept as it is when ||w|| <= 1e-8
-        const float norm = sqrtf(wx * wx + wy * wy + wz * wz);
-        const float theta = norm * half_dt;
-        const float cth = cosf(theta);
-        const float safe = norm > 0.0f ? norm : 1.0f;
-        const float sth = sinf(theta) / safe;
-        const float nqx = cth * qx + sth * (wz * qy - wy * qz + wx * qw);
-        const float nqy = cth * qy + sth * (-wz * qx + wx * qz + wy * qw);
-        const float nqz = cth * qz + sth * (wy * qx - wx * qy + wz * qw);
-        const float nqw = cth * qw + sth * (-wx * qx - wy * qy - wz * qz);
-        if (!(norm <= 1e-8f)) {
-            qx = nqx; qy = nqy; qz = nqz; qw = nqw;
-        }
-
-        // stored world angular velocity: PRE-step rotation, post-step rates
-        avx = r00 * wx + r01 * wy + r02 * wz;
-        avy = r10 * wx + r11 * wy + r12 * wz;
-        avz = r20 * wx + r21 * wy + r22 * wz;
-    }
-    s[0] = px; s[1] = py; s[2] = pz;
-    s[3] = qx; s[4] = qy; s[5] = qz; s[6] = qw;
-    s[7] = vx; s[8] = vy; s[9] = vz;
-    s[10] = wx; s[11] = wy; s[12] = wz;
-    s[13] = avx; s[14] = avy; s[15] = avz;
+    float r[9];
+    for (int i = 1; i < n_substeps; ++i)
+        gpd_dyn_substep(c, dt, half_dt, s, thrust, xt, yt, zt, r);
+    gpd_dyn_substep(c, dt, half_dt, s, thrust, xt, yt, zt, r);
+    // stored world angular velocity: PRE-step rotation, post-step rates
+    s[13] = r[0] * s[10] + r[1] * s[11] + r[2] * s[12];
+    s[14] = r[3] * s[10] + r[4] * s[11] + r[5] * s[12];
+    s[15] = r[6] * s[10] + r[7] * s[11] + r[8] * s[12];
 }
 
 // Roll/pitch/yaw of a possibly un-normalized quaternion.  atan2 is scale
@@ -353,7 +380,8 @@ GPD_HD void gpd_pid_tick(const GpdPid& c, float ctrl_dt, const float* s,
         (sqrtf(scalar_thrust / c.kf4) - PWM2RPM_CONST) / PWM2RPM_SCALE;
     const float tt_norm = sqrtf(tt[0] * tt[0] + tt[1] * tt[1] + tt[2] * tt[2]);
     const float zax[3] = {tt[0] / tt_norm, tt[1] / tt_norm, tt[2] / tt_norm};
-    const float cyaw = cosf(tgt[5]), syaw = sinf(tgt[5]);
+    float cyaw, syaw;   // sincosf: as in gpd_dyn_substep
+    sincosf(tgt[5], &syaw, &cyaw);
     // y_ax = normalize(z_ax x x_c), x_c = [cos yaw, sin yaw, 0]
     const float zxc[3] = {-zax[2] * syaw, zax[2] * cyaw,
                           zax[0] * syaw - zax[1] * cyaw};
@@ -373,9 +401,10 @@ GPD_HD void gpd_pid_tick(const GpdPid& c, float ctrl_dt, const float* s,
     float cr, cp, cy;
     gpd_quat_rpy(qx, qy, qz, qw, cr, cp, cy);
     // R(target_euler) = Rx(ea) @ Ry(eb) @ Rz(ec)
-    const float ca = cosf(ea), sa = sinf(ea);
-    const float cb = cosf(eb), sb = sinf(eb);
-    const float cc = cosf(ec), sc = sinf(ec);
+    float ca, sa, cb, sb, cc, sc;
+    sincosf(ea, &sa, &ca);
+    sincosf(eb, &sb, &cb);
+    sincosf(ec, &sc, &cc);
     const float t00 = cb * cc, t01 = -cb * sc, t02 = sb;
     const float t10 = ca * sc + sa * sb * cc, t11 = ca * cc - sa * sb * sc,
                 t12 = -sa * cb;

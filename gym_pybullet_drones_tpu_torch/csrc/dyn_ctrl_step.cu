@@ -5,6 +5,15 @@
 // block; the column index is the contiguous one, so every row load and
 // store is coalesced.  The drone's state stays in registers through all
 // substeps.  Tail threads are masked; B needs no padding.
+//
+// What bounds it on an H100 (NVIDIA H100 80GB HBM3, 700 W; PERF.md): at
+// the rollout's 4096-16384 columns neither bytes nor operations.  One warp
+// costs within 13% of 16384 columns: about 1.0-1.3 us of launch floor, then
+// one memory round trip and one thread's chain of eight substeps, each
+// waiting in program order on the slow-path branch regions of an IEEE
+// reciprocal, a square root, a sine/cosine reduction and a division.  The
+// kernel shortens that chain without changing a result (ops/kernel_dyn.py,
+// gpd_dyn_substep).
 #include <cuda_runtime.h>
 
 #include "drone_kernels.cuh"
@@ -47,11 +56,11 @@ __global__ void dyn_ctrl_step_kernel(const float* __restrict__ state,
 extern "C" int gpd_params_size() { return (int)sizeof(GpdStepParams); }
 
 // Blocks and threads per block of the launch gpd_dyn_ctrl_step makes over B
-// columns, one (env, drone) each: 128 threads a block.  `n` is not read.
+// columns, one (env, drone) each: GPD_DYN_THREADS a block.  `n` is not read.
 extern "C" void gpd_dyn_ctrl_step_geometry(int B, int n, int* blocks,
                                            int* threads) {
     (void)n;
-    *threads = 128;
+    *threads = GPD_DYN_THREADS;
     *blocks = (B + *threads - 1) / *threads;
 }
 

@@ -12,6 +12,11 @@
 //   pid   (9, B):  last_rpy3 integral_pos_e3 integral_rpy_e3
 //   tgt   (12, B): target pos3 rpy3 vel3 rpy_rates3
 //   -> state' (16, B), pid' (9, B), rpm (4, B) [, obs12 (12, B)]
+//
+// What bounds it on an H100 (NVIDIA H100 80GB HBM3, 700 W; PERF.md): as
+// dyn_ctrl_step, the launch floor and one thread's chain, not bytes or
+// operations, at the rollout's 16384 columns; the tick's own chain adds
+// about 2 us before the substeps.
 #include <cuda_runtime.h>
 
 #include "drone_kernels.cuh"
@@ -67,11 +72,11 @@ __global__ void pid_dyn_ctrl_step_kernel(const float* __restrict__ state,
 extern "C" int gpd_params_size() { return (int)sizeof(GpdStepParams); }
 
 // Blocks and threads per block of the launch gpd_pid_dyn_ctrl_step makes over B
-// columns, one (env, drone) each: 128 threads a block.  `n` is not read.
+// columns, one (env, drone) each: GPD_DYN_THREADS a block.  `n` is not read.
 extern "C" void gpd_pid_dyn_ctrl_step_geometry(int B, int n, int* blocks,
                                                int* threads) {
     (void)n;
-    *threads = 128;
+    *threads = GPD_DYN_THREADS;
     *blocks = (B + *threads - 1) / *threads;
 }
 

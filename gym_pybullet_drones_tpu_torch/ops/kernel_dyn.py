@@ -10,17 +10,32 @@ block:
     0..2  pos xyz      3..6  quat xyzw      7..9  vel xyz
    10..12 body rpy-rates xyz               13..15 world ang_v xyz
 
-What bounds it on an H100: bytes.  A column is read once (13 + 4 floats: the
-world ang_v rows are recomputed, never read) and written once (16 [+ 12] floats) around some 1,500 float32 operations,
-far below the card's operations-per-byte roof, and at the rollout's batch
-sizes (thousands of columns, under a megabyte) the launch itself costs
-more than the memory traffic.  The design therefore keeps the whole
-control step in one launch with one thread per column, the drone's state
-in registers for all substeps, and every row load and store coalesced
-(the column index is the contiguous one).  There is no lane padding and no
-blocking by fast-memory size: the kernel takes B and the row stride and
-masks its tail threads.  Drone constants, substep count and dt arrive in a
-by-value struct, so one build serves every configuration.
+What bounds it on an H100 (NVIDIA H100 80GB HBM3, 700 W; `PERF.md`):
+neither its bytes nor its operations at the rollout's widths.  The bound
+is 0.2-0.9 us at 4096-16384 columns; the launch costs 3.5-3.9 us, and one
+warp (32 columns) costs within 13% of 4096 or 16384 columns: columns start
+to cost only towards 65536, where the bytes (3.5 us) come near.  Of one
+warp's time about 1.0-1.3 us is the launch floor (one dependent node of a
+CUDA graph), the rest one memory round trip and one thread's dependent
+chain: eight substeps, each waiting in program order on an IEEE
+reciprocal, a square root, a sine/cosine argument reduction and a
+division, every one of them a branch region around its slow path, which
+the compiler does not schedule across.
+
+The design therefore keeps the whole control step in one launch with one
+thread per column, the drone's state in registers for all substeps, and
+every row load and store coalesced (the column index is the contiguous
+one), and shortens the chain without changing a result: `sincosf` takes
+one argument reduction for both values (bit for bit `sinf`'s and
+`cosf`'s), and the square root never sees 0 (`sqrtf(0)` takes the slow
+path, and a warp with one column at rest would wait on it at every
+substep).  The substep loop stays rolled: unrolling it was measured no
+faster here and up to 10% slower in `pid_dyn_ctrl_step` (the longer body's
+instruction fetch, with one warp per scheduler).  64 threads a block (32,
+64 and 128 are within 2.5%).  There is no lane padding and no blocking by
+fast-memory size: the kernel takes B and the row stride and masks its tail
+threads.  Drone constants, substep count and dt arrive in a by-value
+struct, so one build serves every configuration.
 
 Semantics match `ops/dynamics.dyn_step` (reference BaseAviary.py:815-889)
 including the stale-rotation ang_v store and the zero-omega quaternion

@@ -19,14 +19,19 @@ column per (env x drone):
     tgt   (12, B)   target pos3, rpy3, vel3, rpy_rates3
     -> state' (16, B), pid' (9, B), rpm (4, B) [, obs12 (12, B)]
 
-What bounds it on an H100: bytes by the count (13 + 9 + 12 rows read, 16 +
-9 + 4 [+ 12] written, around some 1,900 float32 operations per column), and
-at the rollout's batch sizes the launch and the latency of one thread's
-dependent chain (divisions, square roots, six inverse-trig and eight sin/cos
-calls before the eight substeps) above both.  The design is K1's: one launch
-per control step, one thread per column, everything in registers, coalesced
-row loads and stores, no lane padding, the tail masked, every constant in
-the by-value parameter struct.
+What bounds it on an H100 (NVIDIA H100 80GB HBM3, 700 W; `PERF.md`): not
+its bytes (13 + 9 + 12 rows read, 16 + 9 + 4 [+ 12] written, 1.5 us at
+16384 columns) nor its operations (some 1,900 float32 a column), but the
+launch floor (1.0-1.3 us) and one thread's dependent chain: one warp costs
+within 10% of 16384 columns, and 65536 columns cost 1.6x as much.
+The tick adds about 2 us to `dyn_ctrl_step`'s chain (divisions, square
+roots, the inverse trig and four sine/cosine pairs before the substeps).
+The design is K1's: one launch per control step, one thread per column,
+everything in registers, coalesced row loads and stores, no lane padding,
+the tail masked, every constant in the by-value parameter struct; the
+tick's four sine/cosine pairs take `sincosf` (bit for bit the same
+values), its arithmetic is otherwise the plain version's, expression by
+expression.
 
 The controller's parameters (`pid_params`) are passed apart from the
 dynamics' (`dyn_params`): the env paths always pass CF2X (reference

@@ -33,12 +33,12 @@ def _inputs(b, seed):
             rand_targets(b, seed + 2))
 
 
-def _port(tpm, tdm, leaves, pid, tgts, emit_obs12=False):
+def _port(tpm, tdm, leaves, pid, tgts, emit_obs12=False, n_substeps=SUB):
     t = torch.from_numpy
     before = kernel_pid.launches
     out = kernel_pid.pid_dyn_ctrl_step(
         tpm, tdm, TDynState(*(t(a) for a in leaves)),
-        tpid.PIDState(*(t(a) for a in pid)), SUB, DT, CTRL_DT,
+        tpid.PIDState(*(t(a) for a in pid)), n_substeps, DT, CTRL_DT,
         *(t(a) for a in tgts), emit_obs12)
     assert kernel_pid.launches == before     # a CPU tensor launches nothing
     return out
@@ -88,6 +88,23 @@ def test_plain_pid_dyn_ctrl_step_matches_xla_chain(pid_model, dyn_model):
     for _ in range(SUB):
         ref = j_dyn_step(jdm, ref, jrpm, DT)
     _hold(_port(tpm, tdm, leaves, pid, tgts), ref, jnew, jrpm)
+
+
+def test_plain_pid_dyn_ctrl_step_matches_xla_chain_one_substep():
+    """One substep a control step (240 Hz control): the tick and one
+    `dyn_step`, at the tolerances of the eight-substep chain."""
+    b = 16
+    jm, tm = models("cf2x")
+    leaves, pid, tgts = _inputs(b, seed=40)
+    f32 = lambda a: jnp.asarray(a, jnp.float32)
+    ref = JDynState(*(f32(a) for a in leaves))
+    jrpm, jnew, _, _ = jpid.compute_control(
+        jm, jpid.PIDState(*(f32(a) for a in pid)), CTRL_DT,
+        cur_pos=ref.pos, cur_quat=ref.quat, cur_vel=ref.vel,
+        target_pos=f32(tgts[0]), target_rpy=f32(tgts[1]),
+        target_vel=f32(tgts[2]), target_rpy_rates=f32(tgts[3]))
+    ref = j_dyn_step(jm, ref, jrpm, DT)
+    _hold(_port(tm, tm, leaves, pid, tgts, n_substeps=1), ref, jnew, jrpm)
 
 
 def test_tick_stays_finite_for_a_horizontal_thrust_vector():
