@@ -11,15 +11,21 @@ drones, 4096 envs, embedded DSL-PID), then the PYB family: the routing
 fleet in its default configuration (PYB physics, ground and drone-drone
 contact) and HoverTask under PYB_GND_DRAG_DW (ground effect, drag, ground
 contact), 4096 envs each — through `make_fused_rollout` and
-`make_batched_step`, checking what comes out.  Any failed phase raises and
-the process exits non-zero.  It imports only torch, numpy and the port.
+`make_batched_step`, checking what comes out; then PPO training
+(`rl/ppo.py`), whose rollout steps through `fused_env_step`: one update on
+the card held against the same update on the CPU, the JAX package's PPO
+throughput configuration (Hover, DYN, 8192 envs) and `examples/learn.py`'s
+learning configuration (Hover, PYB, ONE_D_RPM, 64 envs).  Any failed phase
+raises and the process exits non-zero.  It imports only torch, numpy and
+the port.
 
 Output: one JSON object per line, in order `env`, `build`,
 `kernel_checks`, `rollout_hover`, `rollout_multihover`, `rollout_routing`,
-`rollout_routing_pyb`, `rollout_hover_pyb_aero`, `timing`, then the
-`{"kernels": [...]}` summary (one entry per kernel and main-path shape),
-then the card's name and power limit as nvidia-smi prints them, then
-`{"ok": true, "device": {...}}` as the last line.
+`rollout_routing_pyb`, `rollout_hover_pyb_aero`, `ppo_update_parity`,
+`ppo_hover8192`, `ppo_hover_pyb_learn`, `ppo_kernel_checks`, `timing`,
+then the `{"kernels": [...]}` summary (one entry per kernel and main-path
+shape), then the card's name and power limit as nvidia-smi prints them,
+then `{"ok": true, "device": {...}}` as the last line.
 """
 import json
 import re
@@ -64,6 +70,14 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_OPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
 SEED = 0
 GEOMETRY_SUBSET = 33        # envs of a geometry case's second launch: 32 + 1
+# One PPO update (24 control steps of 256 envs, 4 Adam steps) on the card
+# against the same update on the CPU, from the same weights and draws: the
+# rollout differs by the kernel's rounding against its plain version,
+# which reaches the gradients; the weights move by about 1e-3 in all.
+# Measured on an H100: 6e-8 on the weights, 1.9e-6 on v_loss (22.8), 2.7e-6
+# on the last obs; the tolerances are tests/test_torch_ppo.py's.
+PPO_PARAM_ATOL = 1e-6
+PPO_METRIC_TOL = (1e-6, 1e-5)               # (atol, rtol)
 
 
 def emit(obj):
@@ -368,6 +382,7 @@ def main():
     from gym_pybullet_drones_tpu_torch.ops.kernel_env import (
         DRAG_MODES, DW_MODES, GND_MODES)
     from gym_pybullet_drones_tpu_torch.ops.kernel_fused import PID_FAMILY
+    from gym_pybullet_drones_tpu_torch.rl import Draws, PPOConfig, make_train
     from gym_pybullet_drones_tpu_torch.utils.enums import ActionType, Physics
 
     dev = torch.device("cuda", 0)
@@ -1385,6 +1400,154 @@ def main():
         if min(counts.values()) == 0:
             raise AssertionError(f"a kernel was never launched: {counts}")
 
+    # ---- PPO: the trainer's rollout steps through fused_env_step ----
+    # its own random stream: no earlier check's inputs move
+    rng = np.random.default_rng(SEED + 4)
+
+    def metric_values(metrics):
+        return {k: float(v) for k, v in metrics.items()}
+
+    # ppo_update_parity: the same update on the card and on the CPU, from
+    # the same weights and the same draws.  Hover, DYN, RPM; episodes of
+    # 0.5 s truncate on the 16th control step, inside the 24-step rollout.
+    ptask_ppo = HoverTask(act=ActionType.RPM, episode_len_sec=0.5)
+    pp = PPOConfig(num_envs=256, rollout_steps=24, num_minibatches=2,
+                   update_epochs=2)
+    draws = Draws(
+        torch.from_numpy(rng.normal(size=(24, 256, 4)).astype(np.float32)),
+        torch.from_numpy(np.stack([rng.permutation(24) for _ in range(2)])))
+    sides, weights = {}, None
+    for where in ("cpu", dev):
+        init, update, _, _ = make_train(cfg, ptask_ppo, pp, device=where)
+        ts = init(torch.Generator(where).manual_seed(SEED))
+        if weights is None:
+            weights = {k: v.clone() for k, v in
+                       ts.network.state_dict().items()}
+        ts.network.load_state_dict(weights)
+        reset_counts()
+        ts, metrics = update(ts, Draws(*(x.to(where) for x in draws)))
+        sides[torch.device(where).type] = (
+            ts, metric_values(metrics), kernel_fused.launches,
+            update.env_path)
+    (cpu_ts, cpu_m, cpu_launches, _), (card_ts, card_m, card_launches,
+                                       card_path) = sides["cpu"], \
+        sides["cuda"]
+    if card_launches != 24 or cpu_launches != 0 or card_path != "fused":
+        raise AssertionError(f"ppo_update_parity: {card_launches} launches "
+                             f"on the card, {cpu_launches} counted on the "
+                             f"CPU, path {card_path}")
+    param_err = max(
+        float((v.cpu() - cpu_ts.network.state_dict()[k]).abs().max())
+        for k, v in card_ts.network.state_dict().items())
+    moved = max(float((v - weights[k]).abs().max())
+                for k, v in cpu_ts.network.state_dict().items())
+    metric_err = {k: abs(card_m[k] - cpu_m[k]) for k in cpu_m}
+    obs_err = check_close("ppo_update_parity last_obs",
+                          card_ts.last_obs, cpu_ts.last_obs.to(dev))
+    if param_err > PPO_PARAM_ATOL or moved < 100 * PPO_PARAM_ATOL or any(
+            metric_err[k] > PPO_METRIC_TOL[0]
+            + PPO_METRIC_TOL[1] * abs(cpu_m[k]) for k in cpu_m):
+        raise AssertionError(f"ppo_update_parity: weights {param_err} "
+                             f"(moved {moved}), metrics {metric_err}")
+    emit({"phase": "ppo_update_parity", "num_envs": 256, "rollout_steps": 24,
+          "launches": card_launches, "param_max_abs_err": param_err,
+          "param_atol": PPO_PARAM_ATOL, "weights_moved": moved,
+          "metric_abs_err": metric_err, "metric_tol": PPO_METRIC_TOL,
+          "last_obs_max_abs_err": obs_err, "metrics_card": card_m})
+
+    # ppo_hover8192: the JAX package's PPO throughput configuration
+    # (bench_all.py:117-121): DYN, RPM, 8192 envs x 64 steps, 4 minibatches,
+    # 4 epochs, the 64x64 MLP.  One warm-up update, then 5 timed ones, each
+    # ending in a host readback of its metrics; the rollout and the
+    # optimizer steps are timed apart (a synchronize between them).
+    reset_counts()
+    pp = PPOConfig(num_envs=8192, rollout_steps=64, num_minibatches=4,
+                   update_epochs=4)
+    init, update, _, _ = make_train(cfg, task, pp, device=dev)
+    if update.env_path != "fused":
+        raise AssertionError(f"ppo_hover8192: env path {update.env_path}")
+    ts = init(torch.Generator(dev).manual_seed(SEED))
+    ts, metrics = update(ts)
+    metric_values(metrics)
+    stamps = []
+
+    def mark():
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    per_update = []
+    for _ in range(5):
+        before = kernel_fused.launches
+        torch.cuda.synchronize()
+        stamps.clear()
+        t0 = time.perf_counter()
+        ts, metrics = update(ts, after_rollout=mark)
+        m = metric_values(metrics)
+        t2 = time.perf_counter()
+        if kernel_fused.launches - before != 64:
+            raise AssertionError("ppo_hover8192: K2 launches per update")
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"ppo_hover8192: metrics {m}")
+        rollout_ms = (stamps[0] - t0) * 1e3
+        per_update.append({
+            "env_steps_per_s": 8192 * 64 / (t2 - t0),
+            "update_ms": (t2 - t0) * 1e3, "rollout_ms": rollout_ms,
+            "optimize_ms": (t2 - stamps[0]) * 1e3,
+            "host_ms_per_rollout_step": rollout_ms / 64, "metrics": m})
+    ppo_counts = {"fused_env_step": kernel_fused.launches}
+    if kernel_dyn.launches or kernel_pid.launches or kernel_env.launches:
+        raise AssertionError("ppo_hover8192 went through another kernel")
+    emit({"phase": "ppo_hover8192", "gpu": card, "env_path": "fused",
+          "launches": ppo_counts, "updates": per_update,
+          "note": "host clock; each update ends in a host readback of its "
+                  "metrics; rollout_ms includes the GAE and ends at a "
+                  "synchronize"})
+
+    # ppo_hover_pyb_learn: examples/learn.py's configuration, PYB physics
+    # (branch (d) of fused_env_step), ONE_D_RPM, 64 envs x 64 steps, 4
+    # minibatches, 10 epochs; 10 updates, then one episodic evaluation
+    # (8 s x 30 Hz + 2 = 242 control steps)
+    reset_counts()
+    lcfg = AviaryConfig(P.CF2X, 1, Physics.PYB, 240, 30)
+    ltask = HoverTask(act=ActionType.ONE_D_RPM)
+    pp = PPOConfig(num_envs=64, rollout_steps=64, num_minibatches=4,
+                   update_epochs=10)
+    init, update, evaluate, _ = make_train(lcfg, ltask, pp, device=dev)
+    ts = init(torch.Generator(dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rewards = []
+    for _ in range(10):
+        ts, metrics = update(ts)
+        rewards.append(metrics["mean_reward"])
+    rewards = torch.stack(rewards).cpu().tolist()
+    seconds_per_update = (time.perf_counter() - t0) / 10
+    t0 = time.perf_counter()
+    returns = evaluate(ts.network, episodic=True)
+    mean_return = float(returns.mean())
+    eval_seconds = time.perf_counter() - t0
+    learn_counts = {"fused_env_step": kernel_fused.launches}
+    if update.env_path != "fused" or learn_counts["fused_env_step"] \
+            != 10 * 64 + 242:
+        raise AssertionError(f"ppo_hover_pyb_learn: {learn_counts} on "
+                             f"{update.env_path}")
+    if kernel_dyn.launches or kernel_pid.launches or kernel_env.launches:
+        raise AssertionError("ppo_hover_pyb_learn went through another "
+                             "kernel")
+    if not (np.isfinite(mean_return) and np.isfinite(rewards).all()):
+        raise AssertionError(f"ppo_hover_pyb_learn: return {mean_return}")
+    emit({"phase": "ppo_hover_pyb_learn", "gpu": card,
+          "launches": learn_counts, "seconds_per_update": seconds_per_update,
+          "train_mean_reward": rewards, "eval_return": mean_return,
+          "eval_seconds": eval_seconds,
+          "note": "host clock; the rewards are read back once, after the "
+                  "10 updates"})
+    # the kernel at the two trainers' shapes, against its plain version
+    fused_case("ppo_hover8192", cfg, task, 8192)
+    fused_case("ppo_hover_pyb_learn", lcfg, ltask, 64)
+    ppo_checks = checks[-2:]
+    emit({"phase": "ppo_kernel_checks", "cases": ppo_checks})
+
     # ---- timing: env-steps/s, host readback inside the window ----
     def steps_per_s(cfg, task, b, steps, scale=0.1):
         acts = scale * torch.randn(
@@ -1447,7 +1610,9 @@ def main():
                            ("multihover2x8192", multi_counts),
                            ("routing4x4096", routing_counts),
                            ("routing4x4096_pyb", routing_pyb_counts),
-                           ("hover4096_pyb_aero", hover_aero_counts)):
+                           ("hover4096_pyb_aero", hover_aero_counts),
+                           ("ppo_hover8192", ppo_counts),
+                           ("ppo_hover_pyb_learn", learn_counts)):
         for name in counts:
             rec = summary[(name, config)]
             kernels.append({

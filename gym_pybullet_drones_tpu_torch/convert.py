@@ -6,8 +6,8 @@ arrays and become this package's tensors, and back.  Nothing here imports
 the JAX package; the caller does the `np.asarray`.
 
 `env_state_from_fused_carry` turns the port's own opaque fused carry into
-the batched path's flat EnvState.  There are no network weights yet; the
-PPO port extends this module with the MLP's parameters.
+the batched path's flat EnvState.  `actor_critic_state_dict_from_flax`
+carries the JAX package's actor-critic params into `models.ActorCritic`.
 """
 from __future__ import annotations
 
@@ -96,3 +96,33 @@ def fused_carry_to_numpy(carry: torch.Tensor) -> np.ndarray:
     blk = carry.detach().cpu().numpy()
     pad = (-blk.shape[1]) % LANE
     return np.pad(blk, ((0, 0), (0, pad)))
+
+
+def actor_critic_state_dict_from_flax(params) -> dict:
+    """The JAX package's `ActorCritic` params as numpy arrays -> the
+    `state_dict` of this package's `models.ActorCritic` (float32, CPU).
+
+    `params` is what `network.init` returns (`{"params": {...}}`), its
+    inner dict, or a `best_model.pkl` that the JAX `examples/learn.py`
+    pickled.  Flax numbers the Dense layers in call order: with L hidden
+    layers a tower, `Dense_0` .. `Dense_{L-1}` are the pi tower and
+    `Dense_L` the mean head, `Dense_{L+1}` .. `Dense_{2L}` the vf tower and
+    `Dense_{2L+1}` the value head.  A flax kernel is (in, out), a torch
+    weight (out, in).  Every leaf becomes float32: under x64 the JAX
+    `log_std` is float64.
+    """
+    p = params.get("params", params)
+    dense = sorted((k for k in p if k.startswith("Dense_")),
+                   key=lambda k: int(k.split("_")[1]))
+    if len(dense) % 2 or len(dense) < 2 or "log_std" not in p:
+        raise ValueError(f"not an ActorCritic params tree: {sorted(p)}")
+    n_hidden = len(dense) // 2 - 1
+    names = ([f"pi.{i}" for i in range(n_hidden)] + ["mean"]
+             + [f"vf.{i}" for i in range(n_hidden)] + ["value"])
+    f32 = lambda x: torch.tensor(np.asarray(x, np.float32))
+    out = {}
+    for name, key in zip(names, dense):
+        out[f"{name}.weight"] = f32(np.asarray(p[key]["kernel"]).T)
+        out[f"{name}.bias"] = f32(p[key]["bias"])
+    out["log_std"] = f32(p["log_std"])
+    return out

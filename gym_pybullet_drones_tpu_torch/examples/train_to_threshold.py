@@ -1,0 +1,160 @@
+"""Seeded training runs to the reference's solved thresholds, on the card.
+
+    python -m gym_pybullet_drones_tpu_torch.examples.train_to_threshold \\
+        --seed 0 --anneal --max_updates 400 --out curve.json
+    ... --multiagent --num_envs 128 --hidden 128 --gamma 0.995 --anneal
+
+Counterpart of the JAX package's `scripts/train_to_threshold.py` for Hover
+(ONE_D_RPM, target 474.15) and MultiHover (2 drones, target 949.5): the
+same flags, the same configuration (PYB physics, 240 Hz under 30 Hz
+control, 4 minibatches), an evaluation (`evaluate(episodic=True)`) after
+every update, and the same fields in the JSON curve it writes.  The
+thresholds are the reference's early-stop values (its
+examples/learn.py:78-83).  `platform` is "gpu" and `device` the card's name
+and power limit as nvidia-smi prints them ("cpu" with `--device cpu`).
+
+`--routing`, `--rgb` and `--sharded` raise NotImplementedError: they wait
+for ROADMAP.md queue 1, items 9 (the routing run), 12 (RGB observations)
+and 16 (sharding, not ported).
+"""
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+from gym_pybullet_drones_tpu_torch import params as P
+from gym_pybullet_drones_tpu_torch.envs import (
+    AviaryConfig, HoverTask, MultiHoverTask)
+from gym_pybullet_drones_tpu_torch.rl import PPOConfig, make_train
+from gym_pybullet_drones_tpu_torch.utils.device import resolve_device
+from gym_pybullet_drones_tpu_torch.utils.enums import ActionType, Physics
+
+
+def device_name(device: torch.device) -> str:
+    """The card's name and power limit, or the CPU."""
+    if device.type != "cuda":
+        return str(device)
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", f"--id={device.index or 0}"], check=True,
+        capture_output=True, text=True).stdout.strip()
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--multiagent", action="store_true")
+    ap.add_argument("--routing", action="store_true")
+    ap.add_argument("--rgb", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    ap.add_argument("--max_updates", type=int, default=400)
+    ap.add_argument("--num_envs", type=int, default=64)
+    ap.add_argument("--hidden", type=int, default=64,
+                    help="MLP tower width (two layers)")
+    ap.add_argument("--gamma", type=float, default=0.99)
+    ap.add_argument("--log_std_init", type=float, default=0.0)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--rollout_steps", type=int, default=64)
+    ap.add_argument("--anneal", action="store_true",
+                    help="linear LR anneal over max_updates")
+    ap.add_argument("--epochs", type=int, default=10,
+                    help="PPO update epochs")
+    ap.add_argument("--out", default=None,
+                    help="output path (default: "
+                         "artifacts/torch_<task>_seed<seed>.json)")
+    ap.add_argument("--sharded", type=int, default=0, metavar="N")
+    args = ap.parse_args(argv)
+    for flag, item in (("routing", "9 (the routing run)"),
+                       ("rgb", "12 (RGB observations)"),
+                       ("sharded", "16 (sharding: not ported)")):
+        if getattr(args, flag):
+            raise NotImplementedError(
+                f"--{flag} waits for ROADMAP.md queue 1, item {item}")
+    device = resolve_device(args.device)
+
+    num_drones = 2 if args.multiagent else 1
+    target = 949.5 if args.multiagent else 474.15
+    name = "multihover" if args.multiagent else "hover"
+    cfg = AviaryConfig(drone=P.CF2X, num_drones=num_drones,
+                       physics=Physics.PYB, pyb_freq=240, ctrl_freq=30)
+    task = (MultiHoverTask if args.multiagent else HoverTask)(
+        act=ActionType.ONE_D_RPM)
+    ppo = PPOConfig(num_envs=args.num_envs, rollout_steps=args.rollout_steps,
+                    num_minibatches=4, update_epochs=args.epochs,
+                    total_timesteps=(args.max_updates * args.num_envs
+                                     * args.rollout_steps),
+                    anneal_lr=args.anneal, gamma=args.gamma, lr=args.lr,
+                    log_std_init=args.log_std_init,
+                    hidden=(args.hidden, args.hidden))
+    init, update, evaluate, _ = make_train(cfg, task, ppo, device=device)
+    ts = init(torch.Generator(device).manual_seed(args.seed))
+
+    curve = []
+    start = time.time()
+    reached_at = None
+    for u in range(args.max_updates):
+        ts, metrics = update(ts)
+        # reference episode accounting (QUIRKS.md #11): the default step
+        # count episode_len_sec * ctrl_freq + 2, stopped at the first
+        # terminated/truncated
+        mean_ret = float(evaluate(ts.network, episodic=True).mean())
+        curve.append({
+            "update": u,
+            "env_steps": (u + 1) * ppo.batch_size,
+            "eval_return": mean_ret,
+            "train_reward": float(metrics["mean_reward"]),
+            "wall_s": round(time.time() - start, 1),
+        })
+        if u % 5 == 0 or mean_ret >= target:
+            print(f"[{name} seed {args.seed}] update {u} "
+                  f"steps={(u + 1) * ppo.batch_size} eval={mean_ret:.2f} "
+                  f"({time.time() - start:.0f}s)", flush=True)
+        if mean_ret >= target:
+            reached_at = u
+            break
+
+    out = {
+        "task": name,
+        "metric": "eval_return",
+        "action_type": "one_d_rpm",
+        "obs_type": "kin",
+        "physics": "pyb",
+        "seed": args.seed,
+        "platform": "gpu" if device.type == "cuda" else device.type,
+        "device": device_name(device),
+        "torch": torch.__version__,
+        "target_reward": target,
+        "reference_source": "gym_pybullet_drones/examples/learn.py:78-83",
+        "env_path": update.env_path,
+        "reached": reached_at is not None,
+        "reached_at_update": reached_at,
+        "reached_at_env_steps":
+            None if reached_at is None else (reached_at + 1) * ppo.batch_size,
+        "best_eval_return": max(c["eval_return"] for c in curve),
+        "total_wall_s": round(time.time() - start, 1),
+        "ppo": {"num_envs": ppo.num_envs, "rollout_steps": ppo.rollout_steps,
+                "num_minibatches": ppo.num_minibatches,
+                "update_epochs": ppo.update_epochs, "lr": ppo.lr,
+                "anneal_lr": ppo.anneal_lr, "gamma": ppo.gamma,
+                "log_std_init": ppo.log_std_init,
+                "hidden": list(ppo.hidden)},
+        "curve": curve,
+    }
+    path = args.out or os.path.join(
+        os.path.dirname(__file__), "..", "..", "artifacts",
+        f"torch_{name}_seed{args.seed}.json")
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    print(f"[RESULT] {name}: reached={out['reached']} "
+          f"at update {reached_at} -> {path}", flush=True)
+    return 0 if out["reached"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
