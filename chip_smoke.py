@@ -15,16 +15,22 @@ contact), 4096 envs each — through `make_fused_rollout` and
 (`rl/ppo.py`), whose rollout steps through `fused_env_step`: one update on
 the card held against the same update on the CPU, the JAX package's PPO
 throughput configuration (Hover, DYN, 8192 envs) and `examples/learn.py`'s
-learning configuration (Hover, PYB, ONE_D_RPM, 64 envs).  Any failed phase
-raises and the process exits non-zero.  It imports only torch, numpy and
-the port.
+learning configuration (Hover, PYB, ONE_D_RPM, 64 envs); then RGB
+observations: the render kernel against its plain version
+(`ops/render.py`), the RGB Hover rollout through `make_batched_step` (256
+envs; `dyn_ctrl_step` and one render launch a control step), one pixel-PPO
+update on the card against the CPU, and the JAX package's pixel-PPO
+throughput configuration (512 envs x 32 steps, the NatureCNN).  Any failed
+phase raises and the process exits non-zero.  It imports only torch, numpy
+and the port.
 
 Output: one JSON object per line, in order `env`, `build`,
 `kernel_checks`, `rollout_hover`, `rollout_multihover`, `rollout_routing`,
 `rollout_routing_pyb`, `rollout_hover_pyb_aero`, `ppo_update_parity`,
-`ppo_hover8192`, `ppo_hover_pyb_learn`, `ppo_kernel_checks`, `timing`,
-then the `{"kernels": [...]}` summary (one entry per kernel and main-path
-shape), then the card's name and power limit as nvidia-smi prints them,
+`ppo_hover8192`, `ppo_hover_pyb_learn`, `ppo_kernel_checks`,
+`render_checks`, `hover256_rgb`, `ppo_rgb_update_parity`, `ppo_rgb512`,
+`timing`, then the `{"kernels": [...]}` summary (one entry per kernel and
+main-path shape), then the card's name and power limit as nvidia-smi prints them,
 then `{"ok": true, "device": {...}}` as the last line.
 """
 import json
@@ -36,6 +42,7 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile, record_function
 
 ATOL, RTOL = 2e-5, 1e-4     # kernel vs plain version, state and obs
 # The embedded-PID paths multiply near-cancelling sums by gains of 20 000
@@ -286,6 +293,17 @@ def pyb_case_counts(st, params, obstacles):
     return out
 
 
+def render_ops_per_pixel(n_spheres, n_boxes, n_drones):
+    """Float32 operations one pixel needs, counted from `csrc/render.cu`
+    (each add, multiply, compare, select, sqrt, division and floor as one):
+    the ray's offsets and direction 32, a sphere 57 (the quadratic 24, its
+    roots and selects 9, the hit point and normal 15, the running minimum
+    9), a box 79 (three slabs of 14, entry and exit 9, the normal 19, the
+    running minimum 9), the plane 29, shading and depth 30.  Every pixel
+    tests every primitive, so the count does not depend on the data."""
+    return 91 + 57 * (n_spheres + n_drones) + 79 * n_boxes
+
+
 def ptxas_figures(log):
     """Registers, stack frame and spills of the one __global__ function of
     a source, from the `-Xptxas -v` output of its build."""
@@ -378,12 +396,19 @@ def main():
         make_batched_step, make_fused_rollout, make_routing_config)
     from gym_pybullet_drones_tpu_torch.envs.tasks import TASK_ROUTING
     from gym_pybullet_drones_tpu_torch.ops import (
-        kernel_dyn, kernel_env, kernel_fused, kernel_math, kernel_pid)
+        kernel_dyn, kernel_env, kernel_fused, kernel_math, kernel_pid,
+        kernel_render, render)
+    from gym_pybullet_drones_tpu_torch.ops import quat as quat_ops
+    from gym_pybullet_drones_tpu_torch.ops.render_check import (
+        CHECKER_TIE, DEPTH_ATOL, RGBA_ATOL, TIE_SHARE, compare_render,
+        obs_ties)
+    from gym_pybullet_drones_tpu_torch.models import ActorCriticCNN
     from gym_pybullet_drones_tpu_torch.ops.kernel_env import (
         DRAG_MODES, DW_MODES, GND_MODES)
     from gym_pybullet_drones_tpu_torch.ops.kernel_fused import PID_FAMILY
     from gym_pybullet_drones_tpu_torch.rl import Draws, PPOConfig, make_train
-    from gym_pybullet_drones_tpu_torch.utils.enums import ActionType, Physics
+    from gym_pybullet_drones_tpu_torch.utils.enums import (
+        ActionType, ObservationType, Physics)
 
     dev = torch.device("cuda", 0)
     card = gpu_line()
@@ -1313,6 +1338,7 @@ def main():
     def reset_counts():
         kernel_dyn.launches = kernel_fused.launches = 0
         kernel_pid.launches = kernel_env.launches = 0
+        kernel_render.launches = 0
 
     def zero_action_episode(name, cfg, task, b, steps, expect):
         """Zero actions through the fused path: which control steps
@@ -1548,6 +1574,342 @@ def main():
     ppo_checks = checks[-2:]
     emit({"phase": "ppo_kernel_checks", "cases": ppo_checks})
 
+    # ---- RGB observations: the render kernel against its plain version ----
+    # its own random stream: no earlier check's inputs move
+    rng = np.random.default_rng(SEED + 5)
+    render_checks = []
+    t_render = time.perf_counter()
+
+    def render_inputs(gen, c, n):
+        """(pos (c, 3), quat (c, 4)) on the card: c // n envs of n drones
+        within some 0.3 m of a centre over the arena, rolled a little,
+        pitched from level to steeply down, any yaw; the first quarter of
+        the envs over negative x and y, pitched down 0.5-1.3 rad."""
+        b = c // n
+        centre = gen.uniform([-1.5, -1.5, 0.1], [1.5, 1.5, 1.2], (b, 1, 3))
+        q = b // 4
+        centre[:q, :, :2] = gen.uniform(-1.5, -0.2, (q, 1, 2))
+        pos = (centre + gen.normal(0, 0.3, (b, n, 3))).reshape(c, 3)
+        pos[:, 2] = np.abs(pos[:, 2]) + 0.02
+        rpy = np.stack([gen.normal(0, 0.2, c), gen.uniform(-0.4, 1.2, c),
+                        gen.uniform(-np.pi, np.pi, c)], -1)
+        rpy[:q * n, 1] = gen.uniform(0.5, 1.3, q * n)
+        quat = quat_ops.rpy_to_quat(torch.from_numpy(rpy.astype(np.float32)))
+        return (torch.from_numpy(pos.astype(np.float32)).to(dev),
+                quat.to(dev).contiguous())
+
+    def render_case(scene_name, n, c, width=64, height=48, timed=None):
+        scene = getattr(render, f"{scene_name}_scene")()
+        p, q = render_inputs(rng, c, n)
+        run = lambda ds=True: kernel_render.render_drones(
+            P.CF2X, scene, p, q, n, width, height, depth_seg=ds)
+        plain = lambda: kernel_render.render_drones_plain(
+            P.CF2X, scene, p, q, n, width, height)
+        got, ref = run(), plain()
+        rec = {"kernel": "render", "scene": scene_name, "drones_per_env": n,
+               "cameras": c, "width": width, "height": height,
+               "geometry": _build.launch_geometry("render", c,
+                                                  width * height)}
+        rec.update(compare_render(f"render {scene_name} n={n} c={c}", got,
+                                  ref, p, render.camera_forward(q),
+                                  P.CF2X.l))
+        rec["ids"] = torch.unique(ref[2]).tolist()
+        rec["max_abs_err"] = max(rec["rgba_max_abs_err"],
+                                 rec["depth_max_abs_err"])
+        if timed:
+            # the obs path: rgba only, 16 bytes a pixel written, the
+            # cameras' 7 floats read
+            npix = c * width * height
+            ops = render_ops_per_pixel(len(scene.sphere_radius),
+                                       len(scene.box_id), n)
+            t_bytes = (16 * npix + 28 * c) / HBM_BYTES_PER_S * 1e3
+            t_ops = ops * npix / FP32_OPS_PER_S * 1e3
+            rec.update(ms=graph_ms(lambda: run(False)),
+                       eager_ms=eager_ms(lambda: run(False), 200),
+                       plain_ms=eager_ms(plain, 5, 1),
+                       bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops
+                       else "operations", ops_per_pixel=ops)
+            summary[("render", timed)] = rec
+        render_checks.append(rec)
+
+    for scene_name in ("landmark", "empty"):
+        for n in (1, 2, 4):
+            for c in (256, 512, 33 + (-33) % n):
+                render_case(scene_name, n, c)
+    render_case("landmark", 2, 64, width=40, height=30)  # a partial block
+    render_case("landmark", 1, 256, timed="hover256_rgb")
+    render_case("landmark", 1, 512, timed="ppo_rgb512")
+    torch.cuda.synchronize()
+    emit({"phase": "render_checks", "rgba_atol": RGBA_ATOL,
+          "depth_atol": DEPTH_ATOL, "tie_share": TIE_SHARE,
+          "checker_tie": CHECKER_TIE, "cases": render_checks,
+          "seconds": time.perf_counter() - t_render})
+
+    # hover256_rgb: the JAX package's RGB rollout configuration
+    # (bench_all.py:103-113): Hover, DYN, RPM, RGB obs, 256 envs, 0.1 N(0, 1)
+    # actions, through make_batched_step: dyn_ctrl_step (no obs12 rows) and
+    # one render launch a control step, and one for the reset image, built
+    # with the step.  First the reset and 8 steps on the card against the
+    # same on the CPU (the plain versions), the card's reset image also
+    # against the plain version on the card; then 3 timed runs of 64
+    # steps, each ending in a host readback of its reward and obs sums.
+    gcfg = hover_cfg()
+    gtask = HoverTask(act=ActionType.RPM, obs=ObservationType.RGB)
+    gb, gsteps = 256, 64
+    gacts = torch.from_numpy((0.1 * np.random.default_rng(SEED + 6).normal(
+        size=(gsteps, gb, 1, 4))).astype(np.float32))
+    sides = {}
+    for where in ("cpu", dev):
+        reset_counts()
+        g_reset, g_step = make_batched_step(gcfg, gtask, gb,
+                                            obs_layout="flat", device=where)
+        reset_launches = kernel_render.launches
+        state, obs = g_reset()
+        reset_state = state
+        out = [obs]
+        for t in range(8):
+            state, obs, reward, term, trunc = g_step(state,
+                                                     gacts[t].to(where))
+            out.append((obs, reward, term | trunc, state.pos))
+        sides[torch.device(where).type] = out
+    # the card's reset image came from one launch of the render kernel
+    reset_plain = kernel_render.render_drones_plain(
+        P.CF2X, render.landmark_scene(), reset_state.pos, reset_state.quat,
+        1)[0]
+    if reset_launches != 1:
+        raise AssertionError(f"hover256_rgb: {reset_launches} render "
+                             "launches for the reset image")
+    reset_ties = obs_ties("hover256_rgb reset obs, kernel vs plain",
+                          sides["cuda"][0], reset_plain)
+    ties = obs_ties("hover256_rgb reset obs", sides["cuda"][0],
+                    sides["cpu"][0].to(dev))
+    rgb_err = 0.0
+    for t in range(1, 9):
+        (co, cr, cd, cp), (go, gr, gd, gp) = sides["cpu"][t], sides["cuda"][t]
+        ties += obs_ties(f"hover256_rgb obs t={t}", go, co.to(dev))
+        rgb_err = max(rgb_err,
+                      check_close(f"hover256_rgb pos t={t}", gp.t(),
+                                  cp.to(dev).t()),
+                      check_close(f"hover256_rgb reward t={t}", gr[None],
+                                  cr.to(dev)[None]))
+        if not torch.equal(gd.cpu(), cd):
+            raise AssertionError(f"hover256_rgb: flags differ at step {t}")
+    g_reset, g_step = make_batched_step(gcfg, gtask, gb, obs_layout="flat",
+                                        device=dev)
+    gacts = gacts.to(dev)
+    reset_counts()
+    rates = []
+    for _ in range(3):
+        state, obs = g_reset()
+        total = torch.zeros((), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(gsteps):
+            state, obs, reward, term, trunc = g_step(state, gacts[t])
+            total = total + reward.sum() + obs.sum()
+        torch.cuda.synchronize()
+        readback = float(total)
+        rates.append(gsteps * gb / (time.perf_counter() - t0))
+        if not np.isfinite(readback):
+            raise AssertionError("hover256_rgb: non-finite sums")
+    rgb_counts = {"dyn_ctrl_step": kernel_dyn.launches,
+                  "render": kernel_render.launches}
+    if rgb_counts != {"dyn_ctrl_step": 3 * gsteps, "render": 3 * gsteps} \
+            or kernel_fused.launches or kernel_pid.launches \
+            or kernel_env.launches:
+        raise AssertionError(f"hover256_rgb: launches {rgb_counts}")
+    if obs.shape != (gb, 48 * 64 * 4) or not (
+            (obs >= 0) & (obs <= 255)).all():
+        raise AssertionError(f"hover256_rgb: obs {tuple(obs.shape)}")
+    # every launch of 8 control steps, from the profiler (not counted)
+    state, obs = g_reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for t in range(8):
+            state, obs, reward, term, trunc = g_step(state, gacts[t])
+        torch.cuda.synchronize()
+    device_events = [e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+    dyn_case(P.CF2X, gb, False, timed="hover256_rgb",
+             gen=np.random.default_rng(SEED + 7))
+    host_ms = 1e3 / max(rates) * gb
+    device_ms = sum(e.time_range.elapsed_us() for e in device_events) \
+        / 8 / 1e3
+    emit({"phase": "hover256_rgb", "gpu": card, "envs": gb,
+          "steps": gsteps, "env_steps_per_s": max(rates),
+          "env_steps_per_s_runs": rates, "host_ms_per_step": host_ms,
+          "render_ms": summary[("render", "hover256_rgb")]["ms"],
+          "dyn_ctrl_step_ms": summary[("dyn_ctrl_step", "hover256_rgb")]
+          ["ms"], "launches": rgb_counts,
+          "device_launches_per_step": len(device_events) / 8,
+          "device_ms_per_step": device_ms,
+          "device_busy_share": device_ms / host_ms,
+          "card_vs_cpu_steps": 8, "card_vs_cpu_max_abs_err": rgb_err,
+          "card_vs_cpu_obs_ties": ties,
+          "reset_obs_render_launches": reset_launches,
+          "reset_obs_kernel_vs_plain_ties": reset_ties,
+          "note": "best of 3; host clock, a readback of the reward and obs "
+                  "sums inside the window; the device figures from "
+                  "torch.profiler over 8 steps (kernels summed, not their "
+                  "union)"})
+
+    # ppo_rgb_update_parity: one pixel-PPO update on the card against the
+    # same update on the CPU, from the same weights and draws.  Hover, DYN,
+    # ONE_D_RPM, RGB; 0.25 s episodes truncate on control step 9, inside
+    # the 12-step rollout.  The images agree but for ties and the CPU's
+    # vector square root (up to 0.008 of 255 on a pixel); tolerances as
+    # ppo_update_parity's.
+    rng = np.random.default_rng(SEED + 8)
+    qtask = HoverTask(act=ActionType.ONE_D_RPM, obs=ObservationType.RGB,
+                      episode_len_sec=0.25)
+    qp = PPOConfig(num_envs=16, rollout_steps=12, num_minibatches=2,
+                   update_epochs=2)
+    draws = Draws(
+        torch.from_numpy(rng.normal(size=(12, 16, 1)).astype(np.float32)),
+        torch.from_numpy(np.stack([rng.permutation(12) for _ in range(2)])))
+    sides, weights = {}, None
+    for where in ("cpu", dev):
+        init, update, _, network = make_train(gcfg, qtask, qp, device=where)
+        if not isinstance(network, ActorCriticCNN):
+            raise AssertionError("ppo_rgb_update_parity: not the CNN")
+        ts = init(torch.Generator(where).manual_seed(SEED))
+        if weights is None:
+            weights = {k: v.clone() for k, v in
+                       ts.network.state_dict().items()}
+        ts.network.load_state_dict(weights)
+        reset_counts()
+        ts, metrics = update(ts, Draws(*(x.to(where) for x in draws)))
+        sides[torch.device(where).type] = (
+            ts, metric_values(metrics),
+            (kernel_dyn.launches, kernel_render.launches))
+    (cpu_ts, cpu_m, cpu_n), (card_ts, card_m, card_n) = sides["cpu"], \
+        sides["cuda"]
+    if card_n != (12, 12) or cpu_n != (0, 0):
+        raise AssertionError(f"ppo_rgb_update_parity: launches {card_n} on "
+                             f"the card, {cpu_n} counted on the CPU")
+    param_err = max(
+        float((v.cpu() - cpu_ts.network.state_dict()[k]).abs().max())
+        for k, v in card_ts.network.state_dict().items())
+    moved = max(float((v - weights[k]).abs().max())
+                for k, v in cpu_ts.network.state_dict().items())
+    metric_err = {k: abs(card_m[k] - cpu_m[k]) for k in cpu_m}
+    obs_tie_count = obs_ties("ppo_rgb_update_parity last_obs",
+                             card_ts.last_obs, cpu_ts.last_obs.to(dev))
+    if param_err > PPO_PARAM_ATOL or moved < 100 * PPO_PARAM_ATOL or any(
+            metric_err[k] > PPO_METRIC_TOL[0]
+            + PPO_METRIC_TOL[1] * abs(cpu_m[k]) for k in cpu_m):
+        raise AssertionError(f"ppo_rgb_update_parity: weights {param_err} "
+                             f"(moved {moved}), metrics {metric_err}")
+    emit({"phase": "ppo_rgb_update_parity", "num_envs": 16,
+          "rollout_steps": 12, "launches": {"dyn_ctrl_step": card_n[0],
+                                            "render": card_n[1]},
+          "param_max_abs_err": param_err, "param_atol": PPO_PARAM_ATOL,
+          "weights_moved": moved, "metric_abs_err": metric_err,
+          "metric_tol": PPO_METRIC_TOL, "last_obs_ties": obs_tie_count,
+          "last_obs_max_abs_err": float(
+              (card_ts.last_obs - cpu_ts.last_obs.to(dev)).abs().max()),
+          "metrics_card": card_m, "conv_precision": "ieee float32"})
+
+    # ppo_rgb512: the JAX package's pixel-PPO throughput configuration
+    # (bench_all.py:184-208): Hover, DYN, ONE_D_RPM, RGB, 512 envs x 32
+    # steps, 4 minibatches, 2 epochs, lr 1e-4, the NatureCNN.  One warm-up
+    # update, then 3 timed ones, each ending in a host readback of its
+    # metrics; the rollout and the optimizer steps timed apart.
+    reset_counts()
+    zp = PPOConfig(num_envs=512, rollout_steps=32, num_minibatches=4,
+                   update_epochs=2, lr=1e-4)
+    ztask = HoverTask(act=ActionType.ONE_D_RPM, obs=ObservationType.RGB)
+    init, update, _, _ = make_train(gcfg, ztask, zp, device=dev)
+    if update.env_path != "batched":
+        raise AssertionError(f"ppo_rgb512: env path {update.env_path}")
+    ts = init(torch.Generator(dev).manual_seed(SEED))
+    ts, metrics = update(ts)
+    metric_values(metrics)
+    rgb512_updates = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        stamps.clear()
+        t0 = time.perf_counter()
+        ts, metrics = update(ts, after_rollout=mark)
+        m = metric_values(metrics)
+        t2 = time.perf_counter()
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"ppo_rgb512: metrics {m}")
+        rollout_ms = (stamps[0] - t0) * 1e3
+        rgb512_updates.append({
+            "env_steps_per_s": 512 * 32 / (t2 - t0),
+            "update_ms": (t2 - t0) * 1e3, "rollout_ms": rollout_ms,
+            "optimize_ms": (t2 - stamps[0]) * 1e3,
+            "host_ms_per_rollout_step": rollout_ms / 32, "metrics": m})
+    rgb512_counts = {"dyn_ctrl_step": kernel_dyn.launches,
+                     "render": kernel_render.launches}
+    # 4 updates of 32 steps, and the reset image built with the step
+    if rgb512_counts != {"dyn_ctrl_step": 4 * 32, "render": 4 * 32 + 1} \
+            or kernel_fused.launches or kernel_pid.launches \
+            or kernel_env.launches:
+        raise AssertionError(f"ppo_rgb512: launches {rgb512_counts}")
+    # one more update under torch.profiler (not counted), the rollout and
+    # the optimizer steps in ranges of their own: each phase's device time
+    # (the union of its kernels' intervals; a kernel counts where it
+    # starts) over its wall time on the host's clock from the timed runs
+    phase_names = ("ppo_rgb512.rollout", "ppo_rgb512.optimize")
+    ranges = [record_function(phase_names[0])]
+
+    def switch():
+        torch.cuda.synchronize()
+        ranges[-1].__exit__(None, None, None)
+        ranges.append(record_function(phase_names[1]))
+        ranges[-1].__enter__()
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ranges[0].__enter__()
+        ts, metrics = update(ts, after_rollout=switch)
+        metric_values(metrics)
+        ranges[-1].__exit__(None, None, None)
+    events = prof.events()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name not in phase_names]
+    profiled = {}
+    for label, wall in zip(phase_names, ("rollout_ms", "optimize_ms")):
+        spans = [e.time_range for e in events if e.name == label
+                 and e.device_type != torch.autograd.DeviceType.CUDA]
+        inside = sorted((k.time_range.start, k.time_range.end)
+                        for k in kernels if any(
+                            sp.start <= k.time_range.start <= sp.end
+                            for sp in spans))
+        busy, end = 0.0, float("-inf")
+        for lo, hi in inside:
+            if hi > end:
+                busy += hi - max(lo, end)
+                end = hi
+        wall_ms = min(u[wall] for u in rgb512_updates)
+        profiled[label] = {"launches": len(inside),
+                           "device_ms": busy / 1e3,
+                           "device_busy_share": busy / 1e3 / wall_ms}
+    by_name = {}
+    for k in kernels:
+        n_k, t_k = by_name.get(k.name, (0, 0.0))
+        by_name[k.name] = (n_k + 1, t_k + k.time_range.elapsed_us())
+    profiled["top_kernels"] = [
+        {"name": name[:70], "launches": n_k, "ms": t_k / 1e3}
+        for name, (n_k, t_k) in sorted(by_name.items(),
+                                       key=lambda kv: -kv[1][1])[:6]]
+    emit({"phase": "ppo_rgb512", "gpu": card, "env_path": "batched",
+          "launches": rgb512_counts, "updates": rgb512_updates,
+          "profiled_update": profiled,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "conv_precision": "ieee float32",
+          "note": "host clock; each update ends in a host readback of its "
+                  "metrics; rollout_ms includes the GAE and ends at a "
+                  "synchronize; launches include the warm-up update; the "
+                  "busy shares divide a profiled update's device time by "
+                  "the fastest timed update's wall time of the phase"})
+    dyn_case(P.CF2X, 512, False, timed="ppo_rgb512",
+             gen=np.random.default_rng(SEED + 9))
+
     # ---- timing: env-steps/s, host readback inside the window ----
     def steps_per_s(cfg, task, b, steps, scale=0.1):
         acts = scale * torch.randn(
@@ -1602,7 +1964,9 @@ def main():
         "fused_env_step":
             "gym_pybullet_drones_tpu/ops/pallas_fused.py:230",
         "env_ctrl_step":
-            "gym_pybullet_drones_tpu/ops/pallas_env.py:588"}
+            "gym_pybullet_drones_tpu/ops/pallas_env.py:588",
+        # no Pallas kernel: the JAX package's renderer is one XLA program
+        "render": "gym_pybullet_drones_tpu/ops/render.py:100"}
     kernel_floors = {"dyn_ctrl_step": dyn_floors,
                      "pid_dyn_ctrl_step": pid_floors}
     kernels = []
@@ -1612,7 +1976,9 @@ def main():
                            ("routing4x4096_pyb", routing_pyb_counts),
                            ("hover4096_pyb_aero", hover_aero_counts),
                            ("ppo_hover8192", ppo_counts),
-                           ("ppo_hover_pyb_learn", learn_counts)):
+                           ("ppo_hover_pyb_learn", learn_counts),
+                           ("hover256_rgb", rgb_counts),
+                           ("ppo_rgb512", rgb512_counts)):
         for name in counts:
             rec = summary[(name, config)]
             kernels.append({

@@ -12,7 +12,9 @@ A build failure is an exception.  There is no other way to run a kernel on
 a CUDA tensor, and no fallback.
 
 `StepParams` mirrors `GpdStepParams` in `csrc/drone_kernels.cuh` field by
-field; `load()` checks the two sizes against each other.
+field, `RenderParams` mirrors `GpdRenderParams` in `csrc/render.cu`; each
+source exports `gpd_params_size`, and `load()` checks it against the
+mirror of that kernel's struct (`PARAMS`).
 """
 from __future__ import annotations
 
@@ -42,7 +44,15 @@ KERNELS = {
     "pid_dyn_ctrl_step": ("pid_dyn_ctrl_step.cu", "gpd_pid_dyn_ctrl_step"),
     "fused_env_step": ("fused_env_step.cu", "gpd_fused_env_step"),
     "env_ctrl_step": ("env_ctrl_step.cu", "gpd_env_ctrl_step"),
+    "render": ("render.cu", "gpd_render"),
 }
+# flags beyond NVCC_FLAGS, per kernel: the renderer is held against its
+# plain version product for product, so nothing is contracted into an FMA
+EXTRA_FLAGS = {"render": ("-fmad=false",)}
+
+MAX_SPHERES = 8        # GPD_MAX_SPHERES
+MAX_BOXES = 8          # GPD_MAX_BOXES
+MAX_RENDER_DRONES = 8  # GPD_RENDER_MAX_DRONES
 
 
 class DroneConsts(ctypes.Structure):
@@ -108,6 +118,32 @@ class StepParams(ctypes.Structure):
     ]
 
 
+class RenderParams(ctypes.Structure):
+    """Mirror of `GpdRenderParams`: every constant of one render
+    configuration (`ops/kernel_render.py` fills it)."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "width", "height", "group", "n_spheres", "n_boxes")] + [
+        (name, ctypes.c_float) for name in (
+            "l", "tan_half", "far", "depth_scale", "drone_r",
+            "drone_excl")] + [
+        ("light", ctypes.c_float * 3), ("sky", ctypes.c_float * 3),
+        ("ambient", ctypes.c_float), ("diffuse", ctypes.c_float),
+        ("checker", ctypes.c_float * 2), ("drone_color", ctypes.c_float * 3),
+        ("sphere", (ctypes.c_float * 4) * MAX_SPHERES),
+        ("sphere_color", (ctypes.c_float * 3) * MAX_SPHERES),
+        ("sphere_id", ctypes.c_int * MAX_SPHERES),
+        ("box_center", (ctypes.c_float * 3) * MAX_BOXES),
+        ("box_half", (ctypes.c_float * 3) * MAX_BOXES),
+        ("box_color", (ctypes.c_float * 3) * MAX_BOXES),
+        ("box_id", ctypes.c_int * MAX_BOXES),
+    ]
+
+
+# kernel name -> the ctypes mirror of its parameter struct
+PARAMS = {name: StepParams for name in KERNELS}
+PARAMS["render"] = RenderParams
+
 _P = ctypes.c_void_p  # every pointer and the stream: never a bare int
 _ARGTYPES = {
     # state, rpm, out, obs12 (may be NULL), B, ld, params, stream
@@ -125,6 +161,11 @@ _ARGTYPES = {
     # stream
     "gpd_env_ctrl_step": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
                           ctypes.c_int, ctypes.POINTER(StepParams), _P],
+    # pos, its two strides, quat, its two strides, rgba, ld, depth (may be
+    # NULL), seg (may be NULL), cameras, params, stream
+    "gpd_render": [_P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int,
+                   ctypes.c_int, _P, ctypes.c_int, _P, _P, ctypes.c_int,
+                   ctypes.POINTER(RenderParams), _P],
 }
 
 _loaded: dict | None = None
@@ -152,7 +193,8 @@ def build_dir() -> str:
 
 
 def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode()
+                       + repr(sorted(EXTRA_FLAGS.items())).encode())
     for name in sorted(os.listdir(CSRC_DIR)):
         if name.endswith((".cu", ".cuh")):
             h.update(name.encode())
@@ -176,8 +218,8 @@ def build() -> dict:
         if os.path.isfile(lib):
             continue
         tmp = f"{lib}.{os.getpid()}.tmp"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC_DIR, src)]
+        cmd = [find_nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o",
+               tmp, os.path.join(CSRC_DIR, src)]
         procs.append((name, lib, tmp, cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     for name, lib, tmp, cmd, proc in procs:
@@ -202,10 +244,12 @@ def load() -> dict:
     for name, (_, entry) in KERNELS.items():
         lib = ctypes.CDLL(paths[name])
         lib.gpd_params_size.restype = ctypes.c_int
-        if lib.gpd_params_size() != ctypes.sizeof(StepParams):
+        mirror = PARAMS[name]
+        if lib.gpd_params_size() != ctypes.sizeof(mirror):
             raise RuntimeError(
-                f"{name}: GpdStepParams is {lib.gpd_params_size()} bytes, "
-                f"its ctypes mirror {ctypes.sizeof(StepParams)}")
+                f"{name}: its parameter struct is {lib.gpd_params_size()} "
+                f"bytes, its ctypes mirror {mirror.__name__} "
+                f"{ctypes.sizeof(mirror)}")
         fn = getattr(lib, entry)
         fn.argtypes = _ARGTYPES[entry]
         fn.restype = ctypes.c_int
@@ -223,7 +267,8 @@ def load() -> dict:
 def launch_geometry(name: str, b: int, n_drones: int = 1) -> tuple:
     """(blocks, threads per block) of the launch kernel `name` makes for
     its C argument B = `b` and `n_drones`, from the function of the same
-    source that its launcher calls (`<entry>_geometry`)."""
+    source that its launcher calls (`<entry>_geometry`).  For `render`,
+    `b` is the number of cameras and `n_drones` the pixels of one."""
     load()
     blocks, threads = ctypes.c_int(), ctypes.c_int()
     _geometry[name](b, n_drones, ctypes.byref(blocks), ctypes.byref(threads))

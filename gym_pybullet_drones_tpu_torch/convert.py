@@ -7,7 +7,9 @@ the JAX package; the caller does the `np.asarray`.
 
 `env_state_from_fused_carry` turns the port's own opaque fused carry into
 the batched path's flat EnvState.  `actor_critic_state_dict_from_flax`
-carries the JAX package's actor-critic params into `models.ActorCritic`.
+carries the JAX package's actor-critic params into `models.ActorCritic`,
+`actor_critic_cnn_state_dict_from_flax` its NatureCNN's into
+`models.ActorCriticCNN`.
 """
 from __future__ import annotations
 
@@ -122,6 +124,35 @@ def actor_critic_state_dict_from_flax(params) -> dict:
     f32 = lambda x: torch.tensor(np.asarray(x, np.float32))
     out = {}
     for name, key in zip(names, dense):
+        out[f"{name}.weight"] = f32(np.asarray(p[key]["kernel"]).T)
+        out[f"{name}.bias"] = f32(p[key]["bias"])
+    out["log_std"] = f32(p["log_std"])
+    return out
+
+
+def actor_critic_cnn_state_dict_from_flax(params) -> dict:
+    """The JAX package's `ActorCriticCNN` params as numpy arrays -> the
+    `state_dict` of this package's `models.ActorCriticCNN` (float32, CPU).
+
+    Flax names the layers in call order: `Conv_0` .. `Conv_2` the trunk,
+    `Dense_0` the 512-wide layer, `Dense_1` the mean head, `Dense_2` the
+    value head.  A flax conv kernel is HWIO, a torch weight OIHW.  Both
+    modules flatten the last feature map in (h, w, c) order, so `Dense_0`
+    carries across as a plain transpose, like the heads.
+    """
+    p = params.get("params", params)
+    if sorted(k for k in p if k.startswith(("Conv_", "Dense_"))) != [
+            "Conv_0", "Conv_1", "Conv_2", "Dense_0", "Dense_1", "Dense_2"] \
+            or "log_std" not in p:
+        raise ValueError(f"not an ActorCriticCNN params tree: {sorted(p)}")
+    f32 = lambda x: torch.tensor(np.asarray(x, np.float32))
+    out = {}
+    for i in range(3):
+        kernel = np.asarray(p[f"Conv_{i}"]["kernel"])
+        out[f"convs.{i}.weight"] = f32(kernel.transpose(3, 2, 0, 1))
+        out[f"convs.{i}.bias"] = f32(p[f"Conv_{i}"]["bias"])
+    for name, key in (("dense", "Dense_0"), ("mean", "Dense_1"),
+                      ("value", "Dense_2")):
         out[f"{name}.weight"] = f32(np.asarray(p[key]["kernel"]).T)
         out[f"{name}.bias"] = f32(p[key]["bias"])
     out["log_std"] = f32(p["log_std"])

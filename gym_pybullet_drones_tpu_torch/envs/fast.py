@@ -79,7 +79,8 @@ def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
     n = cfg.num_drones
     bn = num_envs * n
     buf_len, act_dim = task.action_buffer_shape(cfg)
-    # ask the kernel for the 12-row obs block when the task consumes it
+    # ask the kernel for the 12-row obs block when the task consumes it (KIN;
+    # RGB renders its obs from the state)
     want_obs12 = getattr(task, "obs", None) == ObservationType.KIN
     # PID-family actions: the cascaded PID and the substeps are ONE launch.
     # Embedded controllers are always CF2X (reference BaseRLAviary.py:76),

@@ -20,8 +20,10 @@ advanced inside `_map_to_rpm`.  Reference quirk preserved: embedded
 controllers always use CF2X parameters whatever the configured drone model
 (reference BaseRLAviary.py:76, VelocityAviary.py:62).
 
-All five action types and KIN observations are ported.  RGB observations
-(ROADMAP.md queue 1 item 12) raise NotImplementedError.
+All five action types are ported, and both observation types: KIN, and
+RGB, each drone's 48x64x4 ray-traced camera image (one launch of the
+render kernel, `ops/kernel_render.py`, on the card; its plain version
+`ops/render.py` on the CPU).
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ import torch
 from gym_pybullet_drones_tpu_torch.params import CF2X
 from gym_pybullet_drones_tpu_torch.utils.enums import (
     ActionType, ObservationType)
+from gym_pybullet_drones_tpu_torch.ops import kernel_render, render
 from gym_pybullet_drones_tpu_torch.ops import quat as quat_ops
 from gym_pybullet_drones_tpu_torch.ops.kernel_fused import (
     PID_FAMILY, pid_setpoint_consts)
@@ -63,13 +66,6 @@ class RowConsts(NamedTuple):
     progress_gain: float = 0.0
     arrival_hold: float = 0.0
     n_extra_obs_rows: int = 0
-
-
-def _require_kin(task) -> None:
-    if task.obs != ObservationType.KIN:
-        raise NotImplementedError(
-            f"{task.obs}: only KIN observations are ported; RGB is "
-            "ROADMAP.md queue 1 item 12 (ops/render.py)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,11 +156,13 @@ class VelocityTask(CtrlTask):
 
 @dataclasses.dataclass(frozen=True)
 class RLTask:
-    """Base RL task: 5 action types, KIN observations with action history.
+    """Base RL task: 5 action types, KIN observations with action history
+    or RGB camera images.
 
     Parity: reference BaseRLAviary (envs/BaseRLAviary.py) — action buffer of
     ctrl_freq//2 past actions (:66-67), action mappings (:160-239), KIN obs =
-    12-dim kinematics + stacked buffer (:243-322).
+    12-dim kinematics + stacked buffer (:243-322), RGB obs = each drone's
+    camera (:252-255, :293-306) over the landmark scene (:99-128).
     """
 
     act: ActionType = ActionType.RPM
@@ -186,6 +184,10 @@ class RLTask:
         return (cfg.ctrl_freq // 2, self.action_dim(cfg))
 
     def obs_dim(self, cfg) -> int:
+        """Per-drone observation width: the flattened image for RGB."""
+        if self.obs == ObservationType.RGB:
+            h, w, c = render.IMAGE_SHAPE
+            return h * w * c
         buf, adim = self.action_buffer_shape(cfg)
         return 12 + buf * adim
 
@@ -233,8 +235,16 @@ class RLTask:
 
     def compute_obs(self, cfg, state: EnvState):
         """KIN: (..., N, 12 + BUF*A) [pos, rpy, vel, ang_v] + action history
-        (reference BaseRLAviary.py:293-322)."""
-        _require_kin(self)
+        (reference BaseRLAviary.py:293-322).  RGB: (..., N, 48, 64, 4), the
+        camera of each drone, which sees the other drones of its env
+        (reference :252-255, :293-306), rendered as `flat_post` renders
+        it: one launch of the render kernel on the card."""
+        if self.obs == ObservationType.RGB:
+            n = state.pos.shape[-2]
+            rgba = kernel_render.render_drones(
+                cfg.drone, render.landmark_scene(), state.pos.reshape(-1, 3),
+                state.quat.reshape(-1, 4), n)
+            return rgba.reshape(state.pos.shape[:-1] + render.IMAGE_SHAPE)
         rpy = quat_ops.quat_to_rpy(state.quat)
         obs12 = torch.cat([state.pos, rpy, state.vel, state.ang_v], dim=-1)
         # (..., N, BUF, A) -> (..., N, BUF*A), oldest first (reference
@@ -257,9 +267,16 @@ class RLTask:
                   obs12=None):
         """Post-processing on the FLATTENED (B*N, k) state: (obs (B*N, D),
         reward (B,), term (B,), trunc (B,)).  `obs12` is the optional
-        kernel-emitted kinematic block (B*N, 12)."""
-        _require_kin(self)
+        kernel-emitted kinematic block (B*N, 12).  RGB: the flat cameras,
+        each seeing its env's drones, in one render launch (HWC rows of
+        48*64*4), and the flags from the Euler angles of the state."""
         b, n = num_envs, num_drones
+        if self.obs == ObservationType.RGB:
+            obs = kernel_render.render_drones(
+                cfg.drone, render.landmark_scene(), flat.pos, flat.quat, n)
+            reward, term, trunc = self.flat_reward_done(
+                cfg, flat, quat_ops.quat_to_rpy(flat.quat), b, n)
+            return obs, reward, term, trunc
         if obs12 is None:
             rpy = quat_ops.quat_to_rpy(flat.quat)              # (B*N, 3)
             obs12 = torch.cat([flat.pos, rpy, flat.vel, flat.ang_v], dim=-1)

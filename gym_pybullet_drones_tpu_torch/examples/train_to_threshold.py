@@ -3,19 +3,22 @@
     python -m gym_pybullet_drones_tpu_torch.examples.train_to_threshold \\
         --seed 0 --anneal --max_updates 400 --out curve.json
     ... --multiagent --num_envs 128 --hidden 128 --gamma 0.995 --anneal
+    ... --rgb --num_envs 512 --rollout_steps 32 --epochs 4 --lr 1e-4 --anneal
 
 Counterpart of the JAX package's `scripts/train_to_threshold.py` for Hover
-(ONE_D_RPM, target 474.15) and MultiHover (2 drones, target 949.5): the
-same flags, the same configuration (PYB physics, 240 Hz under 30 Hz
-control, 4 minibatches), an evaluation (`evaluate(episodic=True)`) after
-every update, and the same fields in the JSON curve it writes.  The
-thresholds are the reference's early-stop values (its
-examples/learn.py:78-83).  `platform` is "gpu" and `device` the card's name
-and power limit as nvidia-smi prints them ("cpu" with `--device cpu`).
+(ONE_D_RPM, target 474.15), MultiHover (2 drones, target 949.5), both on
+PYB physics, and RGB Hover (ONE_D_RPM, target 474.15, DYN physics, each
+drone's camera image as its observation, the NatureCNN policy): the same
+flags, the same configurations (240 Hz under 30 Hz control, 4
+minibatches), an evaluation (`evaluate(episodic=True)`) after every
+update, and the same fields in the JSON curve it writes.  The thresholds
+are the reference's early-stop values (its examples/learn.py:78-83).
+`platform` is "gpu" and `device` the card's name and power limit as
+nvidia-smi prints them ("cpu" with `--device cpu`).
 
-`--routing`, `--rgb` and `--sharded` raise NotImplementedError: they wait
-for ROADMAP.md queue 1, items 9 (the routing run), 12 (RGB observations)
-and 16 (sharding, not ported).
+`--routing` and `--sharded` raise NotImplementedError: they wait for
+ROADMAP.md queue 1, items 9 (the routing run) and 16 (sharding, not
+ported).
 """
 import argparse
 import json
@@ -31,7 +34,8 @@ from gym_pybullet_drones_tpu_torch.envs import (
     AviaryConfig, HoverTask, MultiHoverTask)
 from gym_pybullet_drones_tpu_torch.rl import PPOConfig, make_train
 from gym_pybullet_drones_tpu_torch.utils.device import resolve_device
-from gym_pybullet_drones_tpu_torch.utils.enums import ActionType, Physics
+from gym_pybullet_drones_tpu_torch.utils.enums import (
+    ActionType, ObservationType, Physics)
 
 
 def device_name(device: torch.device) -> str:
@@ -70,20 +74,26 @@ def main(argv=None):
     ap.add_argument("--sharded", type=int, default=0, metavar="N")
     args = ap.parse_args(argv)
     for flag, item in (("routing", "9 (the routing run)"),
-                       ("rgb", "12 (RGB observations)"),
                        ("sharded", "16 (sharding: not ported)")):
         if getattr(args, flag):
             raise NotImplementedError(
                 f"--{flag} waits for ROADMAP.md queue 1, item {item}")
     device = resolve_device(args.device)
 
-    num_drones = 2 if args.multiagent else 1
-    target = 949.5 if args.multiagent else 474.15
-    name = "multihover" if args.multiagent else "hover"
-    cfg = AviaryConfig(drone=P.CF2X, num_drones=num_drones,
-                       physics=Physics.PYB, pyb_freq=240, ctrl_freq=30)
-    task = (MultiHoverTask if args.multiagent else HoverTask)(
-        act=ActionType.ONE_D_RPM)
+    if args.rgb:
+        name, target, physics = "hover_rgb", 474.15, Physics.DYN
+        cfg = AviaryConfig(drone=P.CF2X, num_drones=1, physics=physics,
+                           pyb_freq=240, ctrl_freq=30)
+        task = HoverTask(act=ActionType.ONE_D_RPM, obs=ObservationType.RGB)
+    else:
+        num_drones = 2 if args.multiagent else 1
+        target = 949.5 if args.multiagent else 474.15
+        name = "multihover" if args.multiagent else "hover"
+        physics = Physics.PYB
+        cfg = AviaryConfig(drone=P.CF2X, num_drones=num_drones,
+                           physics=physics, pyb_freq=240, ctrl_freq=30)
+        task = (MultiHoverTask if args.multiagent else HoverTask)(
+            act=ActionType.ONE_D_RPM)
     ppo = PPOConfig(num_envs=args.num_envs, rollout_steps=args.rollout_steps,
                     num_minibatches=4, update_epochs=args.epochs,
                     total_timesteps=(args.max_updates * args.num_envs
@@ -122,8 +132,8 @@ def main(argv=None):
         "task": name,
         "metric": "eval_return",
         "action_type": "one_d_rpm",
-        "obs_type": "kin",
-        "physics": "pyb",
+        "obs_type": task.obs.value,
+        "physics": physics.value,
         "seed": args.seed,
         "platform": "gpu" if device.type == "cuda" else device.type,
         "device": device_name(device),

@@ -19,6 +19,11 @@ Adam with betas (0.9, 0.999) and eps 1e-5 outside the square root, at a
 learning rate that `anneal_lr` takes linearly to 0 over every optimizer
 step of the run.
 
+RGB observations (each drone's 48x64x4 camera image, rendered by one
+kernel launch a control step) get the NatureCNN actor-critic
+(`models/cnn.py`), as in the JAX package; its convolutions, forward and
+backward, run in IEEE float32 on the card, not TF32.
+
 The JAX package's `mesh` and `use_pallas` arguments are TPU-only and are
 not ported (ROADMAP.md queue 1, item 16); its bf16 `compute_dtype` waits
 for item 18.
@@ -34,9 +39,12 @@ import torch
 from gym_pybullet_drones_tpu_torch.envs import core
 from gym_pybullet_drones_tpu_torch.envs.fast import (
     make_batched_step, make_fused_rollout)
+from gym_pybullet_drones_tpu_torch.models.cnn import (
+    ActorCriticCNN, ieee_fp32_convs)
 from gym_pybullet_drones_tpu_torch.models.mlp import (
     ActorCritic, gaussian_entropy, gaussian_log_prob)
 from gym_pybullet_drones_tpu_torch.utils.device import resolve_device
+from gym_pybullet_drones_tpu_torch.utils.enums import ObservationType
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-5
 
@@ -164,11 +172,12 @@ def make_train(env_cfg: core.AviaryConfig, task, ppo: PPOConfig,
     """Build (init, update, evaluate, network) for PPO on (cfg, task).
 
     init(generator) -> TrainState: the env reset and, unless `network` was
-    given, a fresh `ActorCritic` whose orthogonal init is seeded from
-    `generator` (which lives on the training device and goes on to draw
-    the update's noise).  A given `network` is copied to the device as it
-    is.  The returned `network` is that module, or else an ActorCritic of
-    the run's widths (seed 0) into which `evaluate` loads a state_dict.
+    given, a fresh `ActorCritic` (an `ActorCriticCNN` for RGB observations)
+    whose orthogonal init is seeded from `generator` (which lives on the
+    training device and goes on to draw the update's noise).  A given
+    `network` is copied to the device as it is.  The returned `network` is
+    that module, or else a fresh one of the run's shape (seed 0) into which
+    `evaluate` loads a state_dict.
 
     update(ts, draws=None, after_rollout=None) -> (ts, metrics): one
     rollout of `rollout_steps` control steps and `update_epochs x
@@ -193,7 +202,11 @@ def make_train(env_cfg: core.AviaryConfig, task, ppo: PPOConfig,
             "PPOConfig.compute_dtype is not ported yet: ROADMAP.md queue 1, "
             "item 18")
     device = resolve_device(device)
+    rgb = getattr(task, "obs", None) == ObservationType.RGB
     n_drones = env_cfg.num_drones
+    if rgb and network is None and n_drones != 1:
+        raise ValueError("the CNN policy reads one drone's image: RGB "
+                         "training takes one drone an env")
     act_dim_per_drone = task.action_dim(env_cfg)
     act_dim = n_drones * act_dim_per_drone
     obs_dim = n_drones * task.obs_dim(env_cfg)
@@ -221,6 +234,10 @@ def make_train(env_cfg: core.AviaryConfig, task, ppo: PPOConfig,
         # init's CPU generator is seeded from the training generator
         seed = int(torch.randint(0, 2 ** 62, (), generator=generator,
                                  device=generator.device))
+        if rgb:
+            return ActorCriticCNN(
+                act_dim,
+                generator=torch.Generator().manual_seed(seed)).to(device)
         return ActorCritic(
             obs_dim, act_dim, hidden=tuple(ppo.hidden),
             log_std_init=ppo.log_std_init,
@@ -345,8 +362,9 @@ def make_train(env_cfg: core.AviaryConfig, task, ppo: PPOConfig,
                 else:
                     mb = Transition(*(merge(x[take]) for x in traj))
                     adv, ret = merge(advantages[take]), merge(returns[take])
-                total_loss, terms = _loss(net, mb, adv, ret)
-                grads = torch.autograd.grad(total_loss, params)
+                with ieee_fp32_convs():
+                    total_loss, terms = _loss(net, mb, adv, ret)
+                    grads = torch.autograd.grad(total_loss, params)
                 opt_state = clip_adam_step(
                     params, list(grads), opt_state, lr_at(opt_state.count),
                     ppo.max_grad_norm)

@@ -3,6 +3,7 @@ configuration built for the JAX package and for its PyTorch port, and
 seeded numpy inputs pinned to float32 (conftest turns JAX x64 on, so an
 array left untyped would become float64 on the JAX side)."""
 import numpy as np
+import torch
 
 from gym_pybullet_drones_tpu import params as JP
 from gym_pybullet_drones_tpu.envs import (
@@ -14,6 +15,7 @@ from gym_pybullet_drones_tpu_torch import params as TP
 from gym_pybullet_drones_tpu_torch.envs import (
     AviaryConfig as TConfig, HoverTask as THover,
     MultiHoverTask as TMultiHover, make_routing_config as t_routing_config)
+from gym_pybullet_drones_tpu_torch.ops import render_check
 from gym_pybullet_drones_tpu_torch.utils import enums as TE
 
 MODELS = ("cf2x", "cf2p", "racer")
@@ -94,3 +96,30 @@ def rand_rpm(hover_rpm, b, seed, dtype=np.float32):
     rpm = hover_rpm * (1 + 0.02 * rng.normal(size=(b, 4)))
     rpm[0] = hover_rpm
     return np.asarray(rpm, dtype)
+
+
+# ---- RGB observations (ops/render.py against the JAX package's) ----
+# The tie-aware comparison is the port's own (ops/render_check.py), the one
+# the card's checks use; here it holds the port's images to the JAX
+# package's.
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def assert_render_close(got, ref, pos, fwd, arm):
+    """(rgba, depth, seg) of the port against the JAX package's, same
+    shapes, as `render_check.compare_render` holds them; returns its
+    record (the counts of tied pixels among it)."""
+    return render_check.compare_render(
+        "render", tuple(_t(x) for x in got), tuple(_t(x) for x in ref),
+        _t(pos), _t(fwd), arm)
+
+
+def assert_obs_close(got, ref):
+    """RGB observations (any shape ending in the 48*64*4 HWC values of a
+    camera, or (.., 48, 64, 4)) without their seg and depth, as
+    `render_check.obs_ties` holds them; returns the count of pixels
+    beyond RGBA_ATOL."""
+    return render_check.obs_ties("obs", _t(got), _t(ref))

@@ -11,7 +11,8 @@ import jax.numpy as jnp
 from gym_pybullet_drones_tpu.envs import core as jcore
 from gym_pybullet_drones_tpu_torch.envs import core as tcore
 
-from tests._torch_helpers import ATOL, PID_ATOL, RTOL, pair, routing_pair
+from tests._torch_helpers import (
+    ATOL, PID_ATOL, RTOL, assert_obs_close, pair, routing_pair)
 
 
 def _close(got, ref, msg="", atol=ATOL):
@@ -117,8 +118,9 @@ def test_step_autoreset_batched_matches_jax_vmap():
 
 def test_pyb_matches_jax_and_rgb_and_noise_raise():
     """PYB_DW and the routing configuration's default physics (PYB) step as
-    in the JAX package; RGB observations and randomized resets, which the
-    port does not have, raise."""
+    in the JAX package; RGB observations give its camera image
+    (tests/test_torch_rgb_slice.py holds them in full); randomized resets,
+    which the port does not have, raise."""
     import dataclasses
     from gym_pybullet_drones_tpu.envs import (
         make_routing_config as j_routing_config)
@@ -151,8 +153,11 @@ def test_pyb_matches_jax_and_rgb_and_noise_raise():
     tout = tcore.step(*rt, rs, torch.from_numpy(a))
     _close(tout[1], jout[1], "routing PYB step", PID_ATOL)
     _close(tout[2], jout[2], "routing PYB reward", PID_ATOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HoverTask(obs=TE.ObservationType.RGB).compute_obs(tcfg, ts)
+    jrgb = jtask.__class__(obs=JE.ObservationType.RGB).compute_obs(
+        jcfg, jcore.reset(jcfg, jtask)[0])
+    trgb = HoverTask(obs=TE.ObservationType.RGB).compute_obs(tcfg, ts)
+    assert trgb.shape == (1, 48, 64, 4) == jrgb.shape
+    assert_obs_close(trgb, jrgb)
     with pytest.raises(NotImplementedError):
         tcore.reset(tcfg, HoverTask(reset_vel_noise=0.1), device="cpu")
     with pytest.raises(ValueError):

@@ -41,6 +41,12 @@ def test_scan_sees_the_port():
                  "gym_pybullet_drones_tpu_torch/control/dsl_pid.py",
                  "gym_pybullet_drones_tpu_torch/envs/routing.py",
                  "gym_pybullet_drones_tpu_torch/models/mlp.py",
+                 "gym_pybullet_drones_tpu_torch/models/cnn.py",
+                 "gym_pybullet_drones_tpu_torch/ops/render.py",
+                 "gym_pybullet_drones_tpu_torch/ops/kernel_render.py",
+                 "gym_pybullet_drones_tpu_torch/ops/render_check.py",
+                 "gym_pybullet_drones_tpu_torch/envs/tasks.py",
+                 "gym_pybullet_drones_tpu_torch/convert.py",
                  "gym_pybullet_drones_tpu_torch/rl/ppo.py",
                  "gym_pybullet_drones_tpu_torch/examples/learn.py",
                  "gym_pybullet_drones_tpu_torch/examples/"
@@ -59,7 +65,9 @@ def test_kernels_build_only_on_use():
     import gym_pybullet_drones_tpu_torch.envs  # noqa: F401
     assert _build._loaded is None
     assert set(_build.KERNELS) == {"dyn_ctrl_step", "pid_dyn_ctrl_step",
-                                   "fused_env_step", "env_ctrl_step"}
+                                   "fused_env_step", "env_ctrl_step",
+                                   "render"}
+    assert set(_build.PARAMS) == set(_build.KERNELS)
     for src, _ in _build.KERNELS.values():
         assert os.path.isfile(os.path.join(_build.CSRC_DIR, src))
 
