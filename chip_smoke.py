@@ -20,19 +20,28 @@ observations: the render kernel against its plain version
 (`ops/render.py`), the RGB Hover rollout through `make_batched_step` (256
 envs; `dyn_ctrl_step` and one render launch a control step), one pixel-PPO
 update on the card against the CPU, and the JAX package's pixel-PPO
-throughput configuration (512 envs x 32 steps, the NatureCNN).  Any failed
-phase raises and the process exits non-zero.  It imports only torch, numpy
-and the port.
+throughput configuration (512 envs x 32 steps, the NatureCNN).  Between
+the PPO and the RGB phases, population training (`rl/population.py`): a
+population update of K = 4 policies (one fused env launch a control step
+for all of them) held member by member against the single-policy update
+and as a whole against the CPU, the JAX package's population throughput
+configuration (K = 8 x 1024 envs against one policy at 1024 envs), and a
+bf16 (`compute_dtype="bfloat16"`) update on the card against the CPU.
+Any failed phase raises and the process exits non-zero.  It imports only
+torch, numpy and the port.
 
 Output: one JSON object per line, in order `env`, `build`,
 `kernel_checks`, `rollout_hover`, `rollout_multihover`, `rollout_routing`,
 `rollout_routing_pyb`, `rollout_hover_pyb_aero`, `ppo_update_parity`,
 `ppo_hover8192`, `ppo_hover_pyb_learn`, `ppo_kernel_checks`,
+`population_update_parity`, `ppo_population8x1024`,
+`population_kernel_checks`, `ppo_bf16_parity`,
 `render_checks`, `hover256_rgb`, `ppo_rgb_update_parity`, `ppo_rgb512`,
 `timing`, then the `{"kernels": [...]}` summary (one entry per kernel and
 main-path shape), then the card's name and power limit as nvidia-smi prints them,
 then `{"ok": true, "device": {...}}` as the last line.
 """
+import dataclasses
 import json
 import re
 import shutil
@@ -85,6 +94,18 @@ GEOMETRY_SUBSET = 33        # envs of a geometry case's second launch: 32 + 1
 # on the last obs; the tolerances are tests/test_torch_ppo.py's.
 PPO_PARAM_ATOL = 1e-6
 PPO_METRIC_TOL = (1e-6, 1e-5)               # (atol, rtol)
+# One bf16 update (compute_dtype="bfloat16") on the card against the same
+# update on the CPU.  cuBLAS and the CPU sum a bf16 product's float32
+# terms in other orders, so now and then one rounds it to the neighbouring
+# bf16 number (2^-8 relative); Adam turns such a rounding of a gradient
+# entry near zero into a step of up to lr (3e-4) a step.  The weights are
+# held as tests/test_torch_ppo.py holds the port's bf16 update against the
+# JAX package's: none off by more than BF16_PARAM_ATOL, at most
+# BF16_FAR_SHARE of a tensor's entries off by more than BF16_PARAM_NEAR;
+# the metrics to bf16's 2^-8 relative; the last obs to ATOL, RTOL.
+BF16_PARAM_ATOL = 5e-4
+BF16_PARAM_NEAR, BF16_FAR_SHARE = 2e-5, 0.05
+BF16_METRIC_TOL = (1e-6, 2.0 ** -8)         # (atol, rtol)
 
 
 def emit(obj):
@@ -406,7 +427,8 @@ def main():
     from gym_pybullet_drones_tpu_torch.ops.kernel_env import (
         DRAG_MODES, DW_MODES, GND_MODES)
     from gym_pybullet_drones_tpu_torch.ops.kernel_fused import PID_FAMILY
-    from gym_pybullet_drones_tpu_torch.rl import Draws, PPOConfig, make_train
+    from gym_pybullet_drones_tpu_torch.rl import (
+        Draws, PPOConfig, make_train, make_train_population, member_state)
     from gym_pybullet_drones_tpu_torch.utils.enums import (
         ActionType, ObservationType, Physics)
 
@@ -1501,25 +1523,97 @@ def main():
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
 
-    per_update = []
-    for _ in range(5):
-        before = kernel_fused.launches
-        torch.cuda.synchronize()
-        stamps.clear()
-        t0 = time.perf_counter()
-        ts, metrics = update(ts, after_rollout=mark)
-        m = metric_values(metrics)
-        t2 = time.perf_counter()
-        if kernel_fused.launches - before != 64:
-            raise AssertionError("ppo_hover8192: K2 launches per update")
-        if not all(np.isfinite(v) for v in m.values()):
-            raise AssertionError(f"ppo_hover8192: metrics {m}")
-        rollout_ms = (stamps[0] - t0) * 1e3
-        per_update.append({
-            "env_steps_per_s": 8192 * 64 / (t2 - t0),
-            "update_ms": (t2 - t0) * 1e3, "rollout_ms": rollout_ms,
-            "optimize_ms": (t2 - stamps[0]) * 1e3,
-            "host_ms_per_rollout_step": rollout_ms / 64, "metrics": m})
+    def profiled_update(update, ts, label, timed):
+        """One more update under torch.profiler (its launches are not
+        counted by the caller), the rollout and the optimizer steps in
+        ranges of their own: each phase's launches and device time (the
+        union of its kernels' intervals; a kernel counts where it starts)
+        over its wall time on the host's clock, the fastest of the `timed`
+        updates' `rollout_ms` / `optimize_ms`; the six kernels that took
+        the most device time, and the six operators that took the most
+        host time of their own (the profiler's self CPU time, which its
+        tracing stretches)."""
+        names = (f"{label}.rollout", f"{label}.optimize")
+        ranges = [record_function(names[0])]
+
+        def switch():
+            torch.cuda.synchronize()
+            ranges[-1].__exit__(None, None, None)
+            ranges.append(record_function(names[1]))
+            ranges[-1].__enter__()
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ranges[0].__enter__()
+            ts, metrics = update(ts, after_rollout=switch)
+            for v in metrics.values():
+                v.sum().item()
+            ranges[-1].__exit__(None, None, None)
+        events = prof.events()
+        kernels = [e for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.name not in names]
+        out = {}
+        for name, wall in zip(names, ("rollout_ms", "optimize_ms")):
+            spans = [e.time_range for e in events if e.name == name
+                     and e.device_type != torch.autograd.DeviceType.CUDA]
+            inside = sorted((k.time_range.start, k.time_range.end)
+                            for k in kernels if any(
+                                sp.start <= k.time_range.start <= sp.end
+                                for sp in spans))
+            busy, end = 0.0, float("-inf")
+            for lo, hi in inside:
+                if hi > end:
+                    busy += hi - max(lo, end)
+                    end = hi
+            wall_ms = min(u[wall] for u in timed)
+            out[name] = {"launches": len(inside), "device_ms": busy / 1e3,
+                         "device_busy_share": busy / 1e3 / wall_ms}
+        by_name = {}
+        for k in kernels:
+            n_k, t_k = by_name.get(k.name, (0, 0.0))
+            by_name[k.name] = (n_k + 1, t_k + k.time_range.elapsed_us())
+        out["top_kernels"] = [
+            {"name": name[:70], "launches": n_k, "ms": t_k / 1e3}
+            for name, (n_k, t_k) in sorted(by_name.items(),
+                                           key=lambda kv: -kv[1][1])[:6]]
+        ops = [a for a in prof.key_averages() if a.key not in names]
+        out["top_host_ops"] = [
+            {"name": a.key[:50], "calls": a.count,
+             "self_cpu_ms": a.self_cpu_time_total / 1e3}
+            for a in sorted(ops, key=lambda a: -a.self_cpu_time_total)[:6]]
+        return ts, out
+
+    def timed_updates(update, ts, n, envs, steps, name, k2_per_update=None):
+        """`n` updates of `envs` x `steps` env-steps, each ending in a host
+        readback of its metrics, the rollout (with its GAE, up to a
+        synchronize) and the optimizer steps timed apart on the host's
+        clock; each update's K2 launches checked if `k2_per_update`."""
+        runs = []
+        for _ in range(n):
+            before = kernel_fused.launches
+            torch.cuda.synchronize()
+            stamps.clear()
+            t0 = time.perf_counter()
+            ts, metrics = update(ts, after_rollout=mark)
+            m = {k: v.tolist() for k, v in metrics.items()}
+            t2 = time.perf_counter()
+            if k2_per_update is not None \
+                    and kernel_fused.launches - before != k2_per_update:
+                raise AssertionError(f"{name}: K2 launches per update")
+            if not np.isfinite(list(m.values())).all():
+                raise AssertionError(f"{name}: metrics {m}")
+            rollout_ms = (stamps[0] - t0) * 1e3
+            runs.append({
+                "env_steps_per_s": envs * steps / (t2 - t0),
+                "update_ms": (t2 - t0) * 1e3, "rollout_ms": rollout_ms,
+                "optimize_ms": (t2 - stamps[0]) * 1e3,
+                "host_ms_per_rollout_step": rollout_ms / steps,
+                "metrics": m})
+        return ts, runs
+
+    ts, per_update = timed_updates(update, ts, 5, 8192, 64, "ppo_hover8192",
+                                   k2_per_update=64)
     ppo_counts = {"fused_env_step": kernel_fused.launches}
     if kernel_dyn.launches or kernel_pid.launches or kernel_env.launches:
         raise AssertionError("ppo_hover8192 went through another kernel")
@@ -1573,6 +1667,212 @@ def main():
     fused_case("ppo_hover_pyb_learn", lcfg, ltask, 64)
     ppo_checks = checks[-2:]
     emit({"phase": "ppo_kernel_checks", "cases": ppo_checks})
+
+    # ---- population PPO (rl/population.py): K policies, one K2 launch a
+    # control step for all of them ----
+    # its own random stream: no earlier check's inputs move
+    rng = np.random.default_rng(SEED + 10)
+    # the batched products must be IEEE float32, as the CNN's convolutions
+    if torch.backends.cuda.matmul.allow_tf32 \
+            or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("TF32 products are on")
+
+    def state_err(a, b):
+        return max(float((v - b[k].to(v.device)).abs().max())
+                   for k, v in a.items())
+
+    # population_update_parity: K = 4 members of 64 envs, 24 steps, 2
+    # minibatches, 2 epochs (ppo_update_parity's task).  Each member on
+    # the card against `make_train`'s update of its weights and draws on
+    # the card, and the whole population on the card against the CPU.
+    K4 = 4
+    pp = PPOConfig(num_envs=64, rollout_steps=24, num_minibatches=2,
+                   update_epochs=2)
+    draws = Draws(
+        torch.from_numpy(rng.normal(size=(K4, 24, 64, 4))
+                         .astype(np.float32)),
+        torch.from_numpy(np.stack([[rng.permutation(24) for _ in range(2)]
+                                   for _ in range(K4)])))
+    sides, weights = {}, None
+    for where in ("cpu", dev):
+        pinit, pupd, _, _ = make_train_population(cfg, ptask_ppo, pp, K4,
+                                                  device=where)
+        ts = pinit(torch.Generator(where).manual_seed(SEED))
+        if weights is None:
+            weights = {k: v.clone() for k, v in
+                       ts.network.state_dict().items()}
+        ts.network.load_state_dict(weights)
+        singles = [member_state(ts, k) for k in range(K4)]
+        reset_counts()
+        ts, metrics = pupd(ts, Draws(*(x.to(where) for x in draws)))
+        sides[torch.device(where).type] = (
+            ts, {k: v.tolist() for k, v in metrics.items()},
+            kernel_fused.launches, pupd.env_path)
+    (cpu_ts, cpu_m, cpu_launches, _), (card_ts, card_m, card_launches,
+                                       card_path) = sides["cpu"], \
+        sides["cuda"]
+    if card_launches != 24 or cpu_launches != 0 or card_path != "fused":
+        raise AssertionError(f"population_update_parity: {card_launches} "
+                             f"K2 launches on the card (one a control step "
+                             f"for all {K4} members), {cpu_launches} "
+                             f"counted on the CPU, path {card_path}")
+    metric_close = lambda a, b, tol: abs(a - b) <= tol[0] + tol[1] * abs(b)
+    pop_param_err = state_err(card_ts.network.state_dict(),
+                              cpu_ts.network.state_dict())
+    pop_metric_err = {k: max(abs(a - b) for a, b in zip(card_m[k], cpu_m[k]))
+                      for k in cpu_m}
+    pop_obs_err = check_close("population_update_parity last_obs",
+                              card_ts.last_obs, cpu_ts.last_obs.to(dev))
+    moved = state_err(cpu_ts.network.state_dict(), weights)
+    if pop_param_err > PPO_PARAM_ATOL or moved < 100 * PPO_PARAM_ATOL \
+            or not all(metric_close(a, b, PPO_METRIC_TOL) for k in cpu_m
+                       for a, b in zip(card_m[k], cpu_m[k])):
+        raise AssertionError(f"population_update_parity, card vs CPU: "
+                             f"weights {pop_param_err} (moved {moved}), "
+                             f"metrics {pop_metric_err}")
+    member_param_err, member_metric_err = [], []
+    for k in range(K4):
+        one, m1 = pupd.single(singles[k], Draws(draws.noise[k].to(dev),
+                                                draws.perms[k].to(dev)))
+        member_param_err.append(state_err(
+            card_ts.network.member(k).state_dict(),
+            one.network.state_dict()))
+        member_metric_err.append(max(abs(card_m[q][k] - float(v))
+                                     for q, v in m1.items()))
+        if member_param_err[-1] > PPO_PARAM_ATOL or not all(
+                metric_close(card_m[q][k], float(v), PPO_METRIC_TOL)
+                for q, v in m1.items()):
+            raise AssertionError(f"population_update_parity, member {k} vs "
+                                 f"its own update: weights "
+                                 f"{member_param_err[-1]}, metrics "
+                                 f"{member_metric_err[-1]}")
+    emit({"phase": "population_update_parity", "num_policies": K4,
+          "num_envs": 64, "rollout_steps": 24, "launches": card_launches,
+          "param_atol": PPO_PARAM_ATOL, "metric_tol": PPO_METRIC_TOL,
+          "card_vs_cpu_param_max_abs_err": pop_param_err,
+          "card_vs_cpu_metric_max_abs_err": pop_metric_err,
+          "card_vs_cpu_last_obs_max_abs_err": pop_obs_err,
+          "member_vs_single_param_max_abs_err": member_param_err,
+          "member_vs_single_metric_max_abs_err": member_metric_err,
+          "weights_moved": moved, "matmul_tf32": False,
+          "metrics_card": card_m})
+
+    # ppo_population8x1024: the JAX package's population throughput
+    # configuration (bench_all.py:142-181): Hover, DYN, RPM, 1024 envs a
+    # policy x 64 steps, 4 minibatches, 4 epochs, the 64x64 MLP; K = 8
+    # against the single policy at 1024 envs.  One warm-up update, then 5
+    # timed ones each (every run printed), then one profiled update.
+    pp = PPOConfig(num_envs=1024, rollout_steps=64, num_minibatches=4,
+                   update_epochs=4)
+    population_runs = {}
+    for label, k in (("single1024", None), ("population8x1024", 8)):
+        reset_counts()
+        if k is None:
+            init, update, _, _ = make_train(cfg, task, pp, device=dev)
+        else:
+            init, update, _, _ = make_train_population(cfg, task, pp, k,
+                                                       device=dev)
+        if update.env_path != "fused":
+            raise AssertionError(f"{label}: env path {update.env_path}")
+        ts = init(torch.Generator(dev).manual_seed(SEED))
+        ts, metrics = update(ts)
+        [v.tolist() for v in metrics.values()]
+        ts, runs = timed_updates(update, ts, 5, (k or 1) * 1024, 64, label,
+                                 k2_per_update=64)
+        counts = {"fused_env_step": kernel_fused.launches}
+        if kernel_dyn.launches or kernel_pid.launches \
+                or kernel_env.launches:
+            raise AssertionError(f"{label} went through another kernel")
+        ts, profiled = profiled_update(update, ts, label, runs)
+        population_runs[label] = {
+            "num_policies": k or 1, "launches": counts, "updates": runs,
+            "profiled_update": profiled}
+    pop_counts = population_runs["population8x1024"]["launches"]
+    rate = lambda label: float(np.median(
+        [u["env_steps_per_s"] for u in population_runs[label]["updates"]]))
+    emit({"phase": "ppo_population8x1024", "gpu": card, "env_path": "fused",
+          "runs": population_runs,
+          "median_env_steps_per_s": {lb: rate(lb) for lb in population_runs},
+          "population_over_single": rate("population8x1024")
+          / rate("single1024"),
+          "note": "aggregate env-steps/s over the policies; host clock; "
+                  "each update ends in a host readback of its metrics; "
+                  "rollout_ms includes the GAE and ends at a synchronize; "
+                  "launches count the warm-up and the 5 timed updates; the "
+                  "busy shares divide a profiled update's device time by "
+                  "the fastest timed update's wall time of the phase"})
+    # the kernel at the population's shape, and at the MultiHover
+    # population run's (examples/train_population.py: PYB, ONE_D_RPM, 2
+    # drones, 8 x 128 envs; branch (d)), against its plain version
+    fused_case("ppo_population8x1024", cfg, task, 8192)
+    fused_case("multihover_population8x128",
+               AviaryConfig(P.CF2X, 2, Physics.PYB, 240, 30),
+               MultiHoverTask(act=ActionType.ONE_D_RPM), 1024)
+    emit({"phase": "population_kernel_checks", "cases": checks[-2:]})
+
+    # ppo_bf16_parity: one compute_dtype="bfloat16" update on the card
+    # against the CPU from the same weights and draws (ppo_update_parity's
+    # configuration), then the bf16 ppo_hover8192 update time beside the
+    # float32 one of that phase, for the record
+    rng = np.random.default_rng(SEED + 11)
+    bp = PPOConfig(num_envs=256, rollout_steps=24, num_minibatches=2,
+                   update_epochs=2, compute_dtype="bfloat16")
+    draws = Draws(
+        torch.from_numpy(rng.normal(size=(24, 256, 4)).astype(np.float32)),
+        torch.from_numpy(np.stack([rng.permutation(24) for _ in range(2)])))
+    sides, weights = {}, None
+    for where in ("cpu", dev):
+        init, update, _, _ = make_train(cfg, ptask_ppo, bp, device=where)
+        ts = init(torch.Generator(where).manual_seed(SEED))
+        if ts.network.compute_dtype != torch.bfloat16:
+            raise AssertionError("ppo_bf16_parity: not a bf16 network")
+        if weights is None:
+            weights = {k: v.clone() for k, v in
+                       ts.network.state_dict().items()}
+        ts.network.load_state_dict(weights)
+        ts, metrics = update(ts, Draws(*(x.to(where) for x in draws)))
+        sides[torch.device(where).type] = (ts, metric_values(metrics))
+    (cpu_ts, cpu_m), (card_ts, card_m) = sides["cpu"], sides["cuda"]
+    cpu_sd = cpu_ts.network.state_dict()
+    offs = {k: (v.cpu() - cpu_sd[k]).abs()
+            for k, v in card_ts.network.state_dict().items()}
+    bf16_param_err = max(float(o.max()) for o in offs.values())
+    bf16_far_share = max(float((o > BF16_PARAM_NEAR).float().mean())
+                         for o in offs.values())
+    bf16_metric_err = {k: abs(card_m[k] - cpu_m[k]) for k in cpu_m}
+    bf16_obs_err = check_close("ppo_bf16_parity last_obs",
+                               card_ts.last_obs, cpu_ts.last_obs.to(dev))
+    if bf16_param_err > BF16_PARAM_ATOL or bf16_far_share > BF16_FAR_SHARE \
+            or not all(metric_close(card_m[k], cpu_m[k], BF16_METRIC_TOL)
+                       for k in cpu_m):
+        raise AssertionError(f"ppo_bf16_parity: weights {bf16_param_err} "
+                             f"(share beyond {BF16_PARAM_NEAR}: "
+                             f"{bf16_far_share}), metrics {bf16_metric_err}")
+    reset_counts()
+    bp = dataclasses.replace(bp, num_envs=8192, rollout_steps=64,
+                             num_minibatches=4, update_epochs=4)
+    init, update, _, _ = make_train(cfg, task, bp, device=dev)
+    ts = init(torch.Generator(dev).manual_seed(SEED))
+    ts, metrics = update(ts)
+    metric_values(metrics)
+    ts, bf16_updates = timed_updates(update, ts, 3, 8192, 64,
+                                     "ppo_hover8192 bf16", k2_per_update=64)
+    ts, bf16_profiled = profiled_update(update, ts, "ppo_hover8192_bf16",
+                                        bf16_updates)
+    emit({"phase": "ppo_bf16_parity", "gpu": card, "num_envs": 256,
+          "rollout_steps": 24, "param_max_abs_err": bf16_param_err,
+          "param_atol": BF16_PARAM_ATOL,
+          "param_share_beyond_near": bf16_far_share,
+          "param_near": BF16_PARAM_NEAR, "far_share_max": BF16_FAR_SHARE,
+          "metric_abs_err": bf16_metric_err, "metric_tol": BF16_METRIC_TOL,
+          "last_obs_max_abs_err": bf16_obs_err, "metrics_card": card_m,
+          "hover8192_update_ms": {
+              "bfloat16": [u["update_ms"] for u in bf16_updates],
+              "float32": [u["update_ms"] for u in per_update]},
+          "hover8192_bf16_updates": bf16_updates,
+          "hover8192_bf16_profiled_update": bf16_profiled,
+          "note": "the float32 times are ppo_hover8192's, the bf16 ones "
+                  "taken after a warm-up update; host clock"})
 
     # ---- RGB observations: the render kernel against its plain version ----
     # its own random stream: no earlier check's inputs move
@@ -1826,22 +2126,7 @@ def main():
     ts = init(torch.Generator(dev).manual_seed(SEED))
     ts, metrics = update(ts)
     metric_values(metrics)
-    rgb512_updates = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        stamps.clear()
-        t0 = time.perf_counter()
-        ts, metrics = update(ts, after_rollout=mark)
-        m = metric_values(metrics)
-        t2 = time.perf_counter()
-        if not all(np.isfinite(v) for v in m.values()):
-            raise AssertionError(f"ppo_rgb512: metrics {m}")
-        rollout_ms = (stamps[0] - t0) * 1e3
-        rgb512_updates.append({
-            "env_steps_per_s": 512 * 32 / (t2 - t0),
-            "update_ms": (t2 - t0) * 1e3, "rollout_ms": rollout_ms,
-            "optimize_ms": (t2 - stamps[0]) * 1e3,
-            "host_ms_per_rollout_step": rollout_ms / 32, "metrics": m})
+    ts, rgb512_updates = timed_updates(update, ts, 3, 512, 32, "ppo_rgb512")
     rgb512_counts = {"dyn_ctrl_step": kernel_dyn.launches,
                      "render": kernel_render.launches}
     # 4 updates of 32 steps, and the reset image built with the step
@@ -1849,54 +2134,7 @@ def main():
             or kernel_fused.launches or kernel_pid.launches \
             or kernel_env.launches:
         raise AssertionError(f"ppo_rgb512: launches {rgb512_counts}")
-    # one more update under torch.profiler (not counted), the rollout and
-    # the optimizer steps in ranges of their own: each phase's device time
-    # (the union of its kernels' intervals; a kernel counts where it
-    # starts) over its wall time on the host's clock from the timed runs
-    phase_names = ("ppo_rgb512.rollout", "ppo_rgb512.optimize")
-    ranges = [record_function(phase_names[0])]
-
-    def switch():
-        torch.cuda.synchronize()
-        ranges[-1].__exit__(None, None, None)
-        ranges.append(record_function(phase_names[1]))
-        ranges[-1].__enter__()
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        ranges[0].__enter__()
-        ts, metrics = update(ts, after_rollout=switch)
-        metric_values(metrics)
-        ranges[-1].__exit__(None, None, None)
-    events = prof.events()
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.name not in phase_names]
-    profiled = {}
-    for label, wall in zip(phase_names, ("rollout_ms", "optimize_ms")):
-        spans = [e.time_range for e in events if e.name == label
-                 and e.device_type != torch.autograd.DeviceType.CUDA]
-        inside = sorted((k.time_range.start, k.time_range.end)
-                        for k in kernels if any(
-                            sp.start <= k.time_range.start <= sp.end
-                            for sp in spans))
-        busy, end = 0.0, float("-inf")
-        for lo, hi in inside:
-            if hi > end:
-                busy += hi - max(lo, end)
-                end = hi
-        wall_ms = min(u[wall] for u in rgb512_updates)
-        profiled[label] = {"launches": len(inside),
-                           "device_ms": busy / 1e3,
-                           "device_busy_share": busy / 1e3 / wall_ms}
-    by_name = {}
-    for k in kernels:
-        n_k, t_k = by_name.get(k.name, (0, 0.0))
-        by_name[k.name] = (n_k + 1, t_k + k.time_range.elapsed_us())
-    profiled["top_kernels"] = [
-        {"name": name[:70], "launches": n_k, "ms": t_k / 1e3}
-        for name, (n_k, t_k) in sorted(by_name.items(),
-                                       key=lambda kv: -kv[1][1])[:6]]
+    ts, profiled = profiled_update(update, ts, "ppo_rgb512", rgb512_updates)
     emit({"phase": "ppo_rgb512", "gpu": card, "env_path": "batched",
           "launches": rgb512_counts, "updates": rgb512_updates,
           "profiled_update": profiled,
@@ -1977,6 +2215,7 @@ def main():
                            ("hover4096_pyb_aero", hover_aero_counts),
                            ("ppo_hover8192", ppo_counts),
                            ("ppo_hover_pyb_learn", learn_counts),
+                           ("ppo_population8x1024", pop_counts),
                            ("hover256_rgb", rgb_counts),
                            ("ppo_rgb512", rgb512_counts)):
         for name in counts:

@@ -8,6 +8,8 @@ the JAX package; the caller does the `np.asarray`.
 `env_state_from_fused_carry` turns the port's own opaque fused carry into
 the batched path's flat EnvState.  `actor_critic_state_dict_from_flax`
 carries the JAX package's actor-critic params into `models.ActorCritic`,
+`population_state_dict_from_flax` a population's (the same params with a
+leading member axis) into `models.PopulationActorCritic`, and
 `actor_critic_cnn_state_dict_from_flax` its NatureCNN's into
 `models.ActorCriticCNN`.
 """
@@ -128,6 +130,29 @@ def actor_critic_state_dict_from_flax(params) -> dict:
         out[f"{name}.bias"] = f32(p[key]["bias"])
     out["log_std"] = f32(p["log_std"])
     return out
+
+
+def population_state_dict_from_flax(params) -> dict:
+    """The JAX package's population params (every `ActorCritic` leaf with
+    a leading (K,) member axis, as `make_train_population`'s init stacks
+    them) as numpy arrays -> the `state_dict` of this package's
+    `models.PopulationActorCritic` (float32, CPU): each member carried
+    across by `actor_critic_state_dict_from_flax`, then stacked; biases
+    become (K, 1, out)."""
+    p = params.get("params", params)
+    if np.ndim(p.get("log_std")) != 2:
+        raise ValueError("not a population's ActorCritic params: log_std "
+                         "must be (K, action_dim)")
+    member = lambda i: {
+        name: {leaf: np.asarray(v)[i] for leaf, v in layer.items()}
+        if isinstance(layer, dict) else np.asarray(layer)[i]
+        for name, layer in p.items()}
+    members = [actor_critic_state_dict_from_flax(member(i))
+               for i in range(len(p["log_std"]))]
+    stacked = {name: torch.stack([m[name] for m in members])
+               for name in members[0]}
+    return {name: x[:, None, :] if name.endswith(".bias") else x
+            for name, x in stacked.items()}
 
 
 def actor_critic_cnn_state_dict_from_flax(params) -> dict:

@@ -24,9 +24,16 @@ kernel launch a control step) get the NatureCNN actor-critic
 (`models/cnn.py`), as in the JAX package; its convolutions, forward and
 backward, run in IEEE float32 on the card, not TF32.
 
+`PPOConfig.compute_dtype` ("bfloat16") builds the MLP with bf16 layers
+over float32 master weights, as the JAX package does; the CNN has none.
+Everything below `make_train` works on a leading member axis of K
+policies, each on its own E envs of one K x E env: `make_train` is the
+case K = 1, the population trainer (`rl/population.py`) stacks K
+policies, and both run the same update (`make_update`) and evaluation
+(`make_evaluate`).
+
 The JAX package's `mesh` and `use_pallas` arguments are TPU-only and are
-not ported (ROADMAP.md queue 1, item 16); its bf16 `compute_dtype` waits
-for item 18.
+not ported (ROADMAP.md queue 1, item 16).
 """
 from __future__ import annotations
 
@@ -66,7 +73,7 @@ class PPOConfig:
     anneal_lr: bool = False
     hidden: tuple = (64, 64)       # MLP tower widths (ActorCritic)
     log_std_init: float = 0.0      # initial policy exploration (log sigma)
-    # 'bfloat16' Dense layers in the JAX package; not ported (item 18)
+    # the MLP's layers compute in this dtype ('bfloat16'); None = float32
     compute_dtype: str | None = None
     # SB3-exact minibatch semantics: shuffle the flattened (T*E) batch each
     # epoch.  Default False = time-axis minibatching (random timestep
@@ -136,10 +143,19 @@ def adam_init(params) -> AdamState:
 def clip_adam_step(params, grads, state: AdamState, lr: float,
                    max_grad_norm: float) -> AdamState:
     """One step of optax's `chain(clip_by_global_norm(max_grad_norm),
-    adam(lr, eps=1e-5))`, applied to `params` in place (under no_grad)."""
-    g_norm = torch.stack(torch._foreach_norm(grads)).square().sum().sqrt()
+    adam(lr, eps=1e-5))` for K policies, applied to `params` in place
+    (under no_grad).  Every tensor has a leading member axis (a single
+    policy is K = 1) and each member's gradient is clipped by its own
+    global norm, as optax's clip is under `jax.vmap`; Adam is
+    elementwise."""
+    K = grads[0].shape[0]
+    g_norm = torch.linalg.vector_norm(
+        torch.cat([g.reshape(K, -1) for g in grads], dim=1), dim=1)
     keep = g_norm < max_grad_norm
-    grads = [torch.where(keep, g, g / g_norm * max_grad_norm) for g in grads]
+    shape = lambda x, g: x.reshape((K,) + (1,) * (g.dim() - 1))
+    grads = [torch.where(shape(keep, g), g,
+                         g / shape(g_norm, g) * max_grad_norm)
+             for g in grads]
     mu, nu = state.mu, state.nu
     torch._foreach_mul_(mu, ADAM_B1)
     torch._foreach_add_(mu, grads, alpha=1 - ADAM_B1)
@@ -166,13 +182,274 @@ def linear_schedule(init_value: float, end_value: float,
     return schedule
 
 
+def learning_rate(ppo: PPOConfig):
+    """The learning rate as a host function of the optimizer step count:
+    `ppo.lr`, or under `anneal_lr` linear to 0 over every optimizer step
+    of the run."""
+    if ppo.anneal_lr:
+        return linear_schedule(ppo.lr, 0.0, ppo.num_updates
+                               * ppo.update_epochs * ppo.num_minibatches)
+    return lambda count: ppo.lr
+
+
+def compute_dtype_of(ppo: PPOConfig):
+    """`PPOConfig.compute_dtype` as a torch dtype (None = float32)."""
+    if ppo.compute_dtype is None:
+        return None
+    dtype = getattr(torch, str(ppo.compute_dtype), None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"compute_dtype {ppo.compute_dtype!r} is not a "
+                         "torch floating dtype")
+    return dtype
+
+
+def make_env(env_cfg: core.AviaryConfig, task, num_members: int,
+             num_envs: int, device, env_path: str | None):
+    """The training env of K = `num_members` members of E = `num_envs`
+    envs each, as ONE env of K x E envs (member k owns env columns
+    [k*E, (k+1)*E); a single run is K = 1), with flat observations:
+    (reset, step, path).  reset() -> (env_state, obs (K, E, obs_dim));
+    step(env_state, action (K, E, act_dim)) -> (env_state, obs, reward,
+    term, trunc), member-major (K, E, ...).  env_path None = the fused
+    kernel where `fused_spec` admits (cfg, task), else the batched step;
+    'fused' raises where the fused path is not admitted; 'batched' forces
+    `make_batched_step`."""
+    if env_path not in (None, "fused", "batched"):
+        raise ValueError(f"env_path must be None|'fused'|'batched', "
+                         f"got {env_path!r}")
+    K, E, n_drones = num_members, num_envs, env_cfg.num_drones
+    act_dim_per_drone = task.action_dim(env_cfg)
+    obs_dim = n_drones * task.obs_dim(env_cfg)
+    made = None
+    if env_path != "batched":
+        try:
+            made = make_fused_rollout(env_cfg, task, K * E,
+                                      obs_layout="flat", device=device) \
+                + ("fused",)
+        except ValueError:
+            if env_path == "fused":
+                raise
+    if made is None:
+        made = make_batched_step(env_cfg, task, K * E, autoreset=True,
+                                 obs_layout="flat", device=device) \
+            + ("batched",)
+    env_reset, env_step, path = made
+
+    def reset():
+        env_state, obs = env_reset()
+        return env_state, obs.reshape(K, E, obs_dim)
+
+    def step(env_state, action):
+        env_state, obs, reward, term, trunc = env_step(
+            env_state, action.reshape(K * E, n_drones, act_dim_per_drone))
+        return (env_state, obs.reshape(K, E, obs_dim),
+                *(x.reshape(K, E) for x in (reward, term, trunc)))
+    return reset, step, path
+
+
+def collect_rollout(net, step, env_state, obs, noise):
+    """`len(noise)` control steps of the Gaussian policy: one forward pass
+    and one env step each, nothing read back.  `step(env_state, action)`
+    takes the policy's action as it comes out of `net`; `noise[t]` has the
+    action's shape.  Returns (env_state, obs, traj, last_value), traj a
+    `Transition` of tensors with a leading time axis."""
+    steps = []
+    with torch.no_grad():
+        for t in range(len(noise)):
+            mean, log_std, value = net(obs)
+            action = mean + torch.exp(log_std) * noise[t]
+            log_prob = gaussian_log_prob(mean, log_std, action)
+            env_state, next_obs, reward, term, trunc = step(env_state,
+                                                            action)
+            done = torch.logical_or(term, trunc).to(obs.dtype)
+            steps.append((obs, action, log_prob, value, reward, done))
+            obs = next_obs
+        last_value = net(obs)[2]
+    traj = Transition(*(torch.stack(x) for x in zip(*steps)))
+    return env_state, obs, traj, last_value
+
+
+def gae(traj: Transition, last_value, gamma: float, gae_lambda: float):
+    """(advantages, returns) over the time axis, any trailing shape."""
+    # done[t] marks that the state AFTER step t is a reset state, so the
+    # bootstrap V(s_{t+1}) and the recursive GAE term are both masked by
+    # (1 - done[t]) of the CURRENT transition.
+    nonterminal = 1.0 - traj.done
+    next_value = torch.cat([traj.value[1:], last_value[None]])
+    delta = traj.reward + gamma * next_value * nonterminal - traj.value
+    coef = gamma * gae_lambda * nonterminal
+    gae_t = torch.zeros_like(last_value)
+    advantages = [None] * len(delta)
+    for t in reversed(range(len(delta))):
+        gae_t = delta[t] + coef[t] * gae_t
+        advantages[t] = gae_t
+    advantages = torch.stack(advantages)
+    return advantages, advantages + traj.value
+
+
+def ppo_loss(net, batch: Transition, advantages, returns, ppo: PPOConfig):
+    """The clipped PPO loss of K policies -> (total, (pg_loss, v_loss,
+    entropy)), each (K,).  Every tensor has a leading member axis (a
+    single policy is K = 1); each member's terms, the advantage
+    normalisation among them, reduce over its own samples only."""
+    K = advantages.shape[0]
+    avg = lambda x: x.reshape(K, -1).mean(dim=1)
+    mean, log_std, value = net(batch.obs)
+    log_prob = gaussian_log_prob(mean, log_std, batch.action)
+    ratio = torch.exp(log_prob - batch.log_prob)
+    norm_adv = (advantages - advantages.mean(dim=1, keepdim=True)) / (
+        advantages.std(dim=1, correction=0, keepdim=True) + 1e-8)
+    pg1 = ratio * norm_adv
+    pg2 = torch.clamp(ratio, 1 - ppo.clip_eps, 1 + ppo.clip_eps) * norm_adv
+    pg_loss = -avg(torch.minimum(pg1, pg2))
+    v_loss = 0.5 * avg(torch.square(value - returns))
+    ent = avg(gaussian_entropy(log_std))
+    total = pg_loss + ppo.vf_coef * v_loss - ppo.ent_coef * ent
+    return total, (pg_loss, v_loss, ent)
+
+
+def make_update(ppo: PPOConfig, step, num_members: int, lead):
+    """One PPO update of K = `num_members` policies, each on its own E
+    envs of `step` (as `make_env` returns it).  `lead` views a parameter,
+    its gradient or its Adam moment with a leading member axis: `x[None]`
+    for a single policy, `x` itself for a `PopulationActorCritic`.
+
+    run(net, opt_state, env_state, obs (K, E, D), draws, after_rollout)
+    -> ((opt_state, env_state, obs), metrics): a rollout of
+    `rollout_steps` control steps, its GAE, then `update_epochs x
+    num_minibatches` optimizer steps.  `draws` is a `Draws` with a leading
+    member axis; each member gathers its minibatches with its own
+    permutations, so member k's update is what a single run makes of its
+    weights and draws.  The total loss is the SUM of the members' losses,
+    so each member's gradient is its own.  Every metric is (K,)."""
+    K, T = num_members, ppo.rollout_steps
+    lr_at = learning_rate(ppo)
+
+    def run(net, opt_state: AdamState, env_state, obs, draws: Draws,
+            after_rollout=None):
+        # ---- rollout: traj leaves (T, K, E, ...) ----
+        env_state, obs, traj, last_value = collect_rollout(
+            net, step, env_state, obs, draws.noise.transpose(0, 1))
+        advantages, returns = gae(traj, last_value, ppo.gamma,
+                                  ppo.gae_lambda)
+        if after_rollout is not None:
+            after_rollout()
+
+        # ---- minibatching: each member gathers with its own permutation
+        E = obs.shape[1]
+        members = torch.arange(K, device=obs.device)[:, None]
+        if ppo.sb3_minibatching:
+            mb_size = T * E // ppo.num_minibatches
+            per_member = lambda x: x.transpose(0, 1).reshape(
+                (K, T * E) + x.shape[3:])
+            batch = Transition(*(per_member(x) for x in traj))
+            advantages, returns = per_member(advantages), per_member(returns)
+            gather = lambda x, take: x[members, take]
+        else:
+            mb_size = max(1, T // ppo.num_minibatches)
+            batch = traj
+            # merge (T_mb, E) ENV-MAJOR within each member, as the JAX
+            # package does
+            gather = lambda x, take: x[take, members].transpose(1, 2) \
+                .reshape((K, -1) + x.shape[3:])
+
+        params = list(net.parameters())
+        views = [lead(p.detach()) for p in params]
+        mu, nu = opt_state.mu, opt_state.nu
+        state = AdamState(opt_state.count, [lead(m) for m in mu],
+                          [lead(v) for v in nu])
+        aux = []
+        for epoch in range(ppo.update_epochs):
+            perm = draws.perms[:, epoch]
+            for i in range(ppo.num_minibatches):
+                take = perm[:, i * mb_size:(i + 1) * mb_size]
+                mb = Transition(*(gather(x, take) for x in batch))
+                with ieee_fp32_convs():
+                    total_loss, terms = ppo_loss(
+                        net, mb, gather(advantages, take),
+                        gather(returns, take), ppo)
+                    grads = torch.autograd.grad(total_loss.sum(), params)
+                state = clip_adam_step(
+                    views, [lead(g) for g in grads], state,
+                    lr_at(state.count), ppo.max_grad_norm)
+                aux.append(torch.stack([x.detach() for x in terms]))
+        aux = torch.stack(aux).mean(dim=0)                    # (3, K)
+        metrics = {
+            "mean_reward": traj.reward.mean(dim=(0, 2)),
+            "mean_value": traj.value.mean(dim=(0, 2)),
+            "pg_loss": aux[0],
+            "v_loss": aux[1],
+            "entropy": aux[2],
+        }
+        return (AdamState(state.count, mu, nu), env_state, obs), metrics
+    return run
+
+
+def chain_updates(update):
+    """update.many(ts, n): `n` chained updates, every metric stacked on a
+    trailing (n,) axis."""
+    def many(ts: TrainState, num_updates: int):
+        history = []
+        for _ in range(num_updates):
+            ts, metrics = update(ts)
+            history.append(metrics)
+        return ts, {k: torch.stack([m[k] for m in history], dim=-1)
+                    for k in history[0]}
+    return many
+
+
+def episode_steps(env_cfg: core.AviaryConfig, task) -> int:
+    """The reference episode: episode_len_sec * ctrl_freq + 2 control
+    steps (QUIRKS.md #11), `evaluate`'s default."""
+    return int(getattr(task, "episode_len_sec", 8.0) * env_cfg.ctrl_freq) \
+        + 2
+
+
+def make_evaluate(env_cfg: core.AviaryConfig, task, template, reset, step):
+    """The evaluation of K policies on `make_env`'s (reset, step)."""
+    def evaluate(params_or_network, generator=None,
+                 num_steps: int | None = None, episodic: bool = False):
+        """The deterministic policy (its mean) for `num_steps` control
+        steps from a reset: the summed reward per env, (K, E), on the
+        device.
+
+        `params_or_network` is a module or a state_dict for a copy of
+        `template`.  `generator` is accepted for the JAX signature and
+        unused.  episodic=True stops each env's sum at its first
+        terminated/truncated signal (SB3's EvalCallback).  The reference
+        episode lasts episode_len_sec * ctrl_freq + 2 control steps
+        (QUIRKS.md #11), the default num_steps."""
+        if isinstance(params_or_network, torch.nn.Module):
+            net = params_or_network
+        else:
+            net = copy.deepcopy(template)
+            net.load_state_dict(params_or_network)
+        if num_steps is None:
+            num_steps = episode_steps(env_cfg, task)
+        env_state, obs = reset()
+        rewards, alive = [], None
+        with torch.no_grad():
+            for _ in range(num_steps):
+                env_state, obs, reward, term, trunc = step(env_state,
+                                                           net(obs)[0])
+                if episodic:
+                    if alive is not None:
+                        reward = torch.where(alive, reward, 0.0)
+                    alive = ~(term | trunc) if alive is None \
+                        else alive & ~(term | trunc)
+                rewards.append(reward)
+        return torch.stack(rewards).sum(dim=0)
+    return evaluate
+
+
 def make_train(env_cfg: core.AviaryConfig, task, ppo: PPOConfig,
                device=None, network: torch.nn.Module | None = None,
                env_path: str | None = None):
     """Build (init, update, evaluate, network) for PPO on (cfg, task).
 
     init(generator) -> TrainState: the env reset and, unless `network` was
-    given, a fresh `ActorCritic` (an `ActorCriticCNN` for RGB observations)
+    given, a fresh `ActorCritic` (layers in `ppo.compute_dtype`; an
+    `ActorCriticCNN` for RGB observations, which has no compute dtype)
     whose orthogonal init is seeded from `generator` (which lives on the
     training device and goes on to draw the update's noise).  A given
     `network` is copied to the device as it is.  The returned `network` is
@@ -181,53 +458,33 @@ def make_train(env_cfg: core.AviaryConfig, task, ppo: PPOConfig,
 
     update(ts, draws=None, after_rollout=None) -> (ts, metrics): one
     rollout of `rollout_steps` control steps and `update_epochs x
-    num_minibatches` optimizer steps; metrics are 0-d device tensors.  `draws` (a `Draws`)
-    replaces the random numbers drawn from `ts.generator`, so that an
-    update can be held against the JAX package's on the same draws.
-    `after_rollout`, if given, is called with no argument once the rollout
-    and its GAE are enqueued (`chip_smoke.py` times the two phases so).
-    update.many(ts, k) chains k updates, metrics stacked on a leading (k,)
-    axis.  update.env_path is 'fused' or 'batched'.
+    num_minibatches` optimizer steps, `make_update`'s for one member;
+    metrics are 0-d device tensors.  `draws` (a `Draws`) replaces the
+    random numbers drawn from `ts.generator`, so that an update can be
+    held against the JAX package's on the same draws.  `after_rollout`, if
+    given, is called with no argument once the rollout and its GAE are
+    enqueued (`chip_smoke.py` times the two phases so).  update.many(ts,
+    k) chains k updates, metrics stacked on a (k,) axis.  update.env_path
+    is 'fused' or 'batched'.
+
+    evaluate(params_or_network, generator=None, num_steps=None,
+    episodic=False) -> the summed reward per env, (num_envs,), on the
+    device (`make_evaluate`).
 
     device: None = the CUDA card (raises without one); "cpu" runs the
-    kernels' plain versions.  env_path: None = fused where eligible, else
-    batched; 'fused' raises where the fused path is not admitted;
-    'batched' forces `make_batched_step`.
+    kernels' plain versions.  env_path: as `make_env` takes it.
     """
-    if env_path not in (None, "fused", "batched"):
-        raise ValueError(f"env_path must be None|'fused'|'batched', "
-                         f"got {env_path!r}")
-    if ppo.compute_dtype is not None:
-        raise NotImplementedError(
-            "PPOConfig.compute_dtype is not ported yet: ROADMAP.md queue 1, "
-            "item 18")
+    compute_dtype = compute_dtype_of(ppo)
     device = resolve_device(device)
     rgb = getattr(task, "obs", None) == ObservationType.RGB
     n_drones = env_cfg.num_drones
     if rgb and network is None and n_drones != 1:
         raise ValueError("the CNN policy reads one drone's image: RGB "
                          "training takes one drone an env")
-    act_dim_per_drone = task.action_dim(env_cfg)
-    act_dim = n_drones * act_dim_per_drone
+    act_dim = n_drones * task.action_dim(env_cfg)
     obs_dim = n_drones * task.obs_dim(env_cfg)
     T, E = ppo.rollout_steps, ppo.num_envs
-
-    # obs_layout="flat": the policy reads (E, N*D) observations as they are
-    forced_path = env_path
-    env_reset = env_step = None
-    env_path = "batched"
-    if forced_path != "batched":
-        try:
-            env_reset, env_step = make_fused_rollout(
-                env_cfg, task, E, obs_layout="flat", device=device)
-            env_path = "fused"
-        except ValueError:
-            if forced_path == "fused":
-                raise
-    if env_step is None:
-        env_reset, env_step = make_batched_step(
-            env_cfg, task, E, autoreset=True, obs_layout="flat",
-            device=device)
+    reset, step, env_path = make_env(env_cfg, task, 1, E, device, env_path)
 
     def fresh_network(generator: torch.Generator) -> torch.nn.Module:
         # the JAX package's `key, sub = split(key); network.init(sub)`: the
@@ -240,80 +497,23 @@ def make_train(env_cfg: core.AviaryConfig, task, ppo: PPOConfig,
                 generator=torch.Generator().manual_seed(seed)).to(device)
         return ActorCritic(
             obs_dim, act_dim, hidden=tuple(ppo.hidden),
-            log_std_init=ppo.log_std_init,
+            log_std_init=ppo.log_std_init, compute_dtype=compute_dtype,
             generator=torch.Generator().manual_seed(seed)).to(device)
 
     template = network if network is not None \
         else fresh_network(torch.Generator(device).manual_seed(0))
 
-    if ppo.anneal_lr:
-        lr_at = linear_schedule(ppo.lr, 0.0, ppo.num_updates
-                                * ppo.update_epochs * ppo.num_minibatches)
-    else:
-        lr_at = lambda count: ppo.lr
-
     def init(generator: torch.Generator) -> TrainState:
         if generator.device.type != device.type:
             raise ValueError(f"the generator lives on {generator.device}, "
                              f"the training on {device}")
-        env_state, obs = env_reset()
+        env_state, obs = reset()
         net = fresh_network(generator) if network is None \
             else copy.deepcopy(network).to(device)
         return TrainState(
             network=net, opt_state=adam_init(list(net.parameters())),
-            env_state=env_state, last_obs=obs,
+            env_state=env_state, last_obs=obs[0],
             generator=generator, update_idx=0)
-
-    def _rollout(net, env_state, obs, noise):
-        """`rollout_steps` control steps of the Gaussian policy: one
-        forward pass and one env step each, nothing read back."""
-        steps = []
-        with torch.no_grad():
-            for t in range(T):
-                mean, log_std, value = net(obs)
-                action = mean + torch.exp(log_std) * noise[t]
-                log_prob = gaussian_log_prob(mean, log_std, action)
-                env_state, next_obs, reward, term, trunc = env_step(
-                    env_state, action.reshape(E, n_drones,
-                                              act_dim_per_drone))
-                done = torch.logical_or(term, trunc).to(obs.dtype)
-                steps.append((obs, action, log_prob, value, reward, done))
-                obs = next_obs
-            last_value = net(obs)[2]
-        traj = Transition(*(torch.stack(x) for x in zip(*steps)))
-        return env_state, obs, traj, last_value
-
-    def _gae(traj: Transition, last_value):
-        # done[t] marks that the state AFTER step t is a reset state, so the
-        # bootstrap V(s_{t+1}) and the recursive GAE term are both masked by
-        # (1 - done[t]) of the CURRENT transition.
-        nonterminal = 1.0 - traj.done
-        next_value = torch.cat([traj.value[1:], last_value[None]])
-        delta = traj.reward + ppo.gamma * next_value * nonterminal \
-            - traj.value
-        coef = ppo.gamma * ppo.gae_lambda * nonterminal
-        gae = torch.zeros_like(last_value)
-        advantages = [None] * T
-        for t in reversed(range(T)):
-            gae = delta[t] + coef[t] * gae
-            advantages[t] = gae
-        advantages = torch.stack(advantages)
-        return advantages, advantages + traj.value
-
-    def _loss(net, batch: Transition, advantages, returns):
-        mean, log_std, value = net(batch.obs)
-        log_prob = gaussian_log_prob(mean, log_std, batch.action)
-        ratio = torch.exp(log_prob - batch.log_prob)
-        norm_adv = (advantages - advantages.mean()) / (
-            advantages.std(correction=0) + 1e-8)
-        pg1 = ratio * norm_adv
-        pg2 = torch.clamp(ratio, 1 - ppo.clip_eps, 1 + ppo.clip_eps) \
-            * norm_adv
-        pg_loss = -torch.minimum(pg1, pg2).mean()
-        v_loss = 0.5 * torch.square(value - returns).mean()
-        ent = gaussian_entropy(log_std).mean()
-        total = pg_loss + ppo.vf_coef * v_loss - ppo.ent_coef * ent
-        return total, (pg_loss, v_loss, ent)
 
     def _draws(generator) -> Draws:
         noise = torch.randn((T, E, act_dim), generator=generator,
@@ -324,110 +524,28 @@ def make_train(env_cfg: core.AviaryConfig, task, ppo: PPOConfig,
             for _ in range(ppo.update_epochs)])
         return Draws(noise, perms)
 
+    run = make_update(ppo, step, 1, lambda x: x[None])
+
     def update(ts: TrainState, draws: Draws | None = None,
                after_rollout=None):
-        net = ts.network
         if draws is None:
             draws = _draws(ts.generator)
-        # ---- rollout ----
-        env_state, last_obs, traj, last_value = _rollout(
-            net, ts.env_state, ts.last_obs, draws.noise)
-        advantages, returns = _gae(traj, last_value)
-        if after_rollout is not None:
-            after_rollout()
-
-        # ---- minibatching ----
-        if ppo.sb3_minibatching:
-            total = T * E
-            mb_size = total // ppo.num_minibatches
-            flat = Transition(*(x.reshape((total,) + x.shape[2:])
-                                for x in traj))
-            flat_adv, flat_ret = advantages.reshape(total), \
-                returns.reshape(total)
-        else:
-            mb_size = max(1, T // ppo.num_minibatches)
-            # merge (T_mb, E) ENV-MAJOR, as the JAX package does
-            merge = lambda x: x.transpose(0, 1).reshape((-1,) + x.shape[2:])
-
-        params = list(net.parameters())
-        opt_state = ts.opt_state
-        aux = []
-        for epoch in range(ppo.update_epochs):
-            perm = draws.perms[epoch]
-            for i in range(ppo.num_minibatches):
-                take = perm[i * mb_size:(i + 1) * mb_size]
-                if ppo.sb3_minibatching:
-                    mb = Transition(*(x[take] for x in flat))
-                    adv, ret = flat_adv[take], flat_ret[take]
-                else:
-                    mb = Transition(*(merge(x[take]) for x in traj))
-                    adv, ret = merge(advantages[take]), merge(returns[take])
-                with ieee_fp32_convs():
-                    total_loss, terms = _loss(net, mb, adv, ret)
-                    grads = torch.autograd.grad(total_loss, params)
-                opt_state = clip_adam_step(
-                    params, list(grads), opt_state, lr_at(opt_state.count),
-                    ppo.max_grad_norm)
-                aux.append(torch.stack([x.detach() for x in terms]))
-        aux = torch.stack(aux).mean(dim=0)
-        metrics = {
-            "mean_reward": traj.reward.mean(),
-            "mean_value": traj.value.mean(),
-            "pg_loss": aux[0],
-            "v_loss": aux[1],
-            "entropy": aux[2],
-        }
+        (opt_state, env_state, obs), metrics = run(
+            ts.network, ts.opt_state, ts.env_state, ts.last_obs[None],
+            Draws(draws.noise[None], draws.perms[None]), after_rollout)
         return ts._replace(opt_state=opt_state, env_state=env_state,
-                           last_obs=last_obs,
-                           update_idx=ts.update_idx + 1), metrics
+                           last_obs=obs[0],
+                           update_idx=ts.update_idx + 1), \
+            {k: v[0] for k, v in metrics.items()}
 
-    def update_many(ts: TrainState, num_updates: int):
-        """`num_updates` chained updates; every metric stacked on a leading
-        (num_updates,) axis."""
-        history = []
-        for _ in range(num_updates):
-            ts, metrics = update(ts)
-            history.append(metrics)
-        return ts, {k: torch.stack([m[k] for m in history])
-                    for k in history[0]}
+    evaluate_members = make_evaluate(env_cfg, task, template, reset, step)
 
     def evaluate(params_or_network, generator=None,
                  num_steps: int | None = None, episodic: bool = False):
-        """Deterministic-policy rollout on the training env path; returns
-        the summed reward per env, (num_envs,), on the device.
+        """`make_evaluate`'s evaluation of the one policy: (num_envs,)."""
+        return evaluate_members(params_or_network, generator, num_steps,
+                                episodic)[0]
 
-        `params_or_network` is a module or a state_dict for the returned
-        `network`.  `generator` is accepted for the JAX signature and
-        unused: the policy's mean is deterministic.  episodic=True stops
-        each env's sum at its first terminated/truncated signal (SB3's
-        EvalCallback).  The reference episode lasts episode_len_sec *
-        ctrl_freq + 2 control steps (QUIRKS.md #11), the default
-        num_steps.
-        """
-        if isinstance(params_or_network, torch.nn.Module):
-            net = params_or_network
-        else:
-            net = copy.deepcopy(template)
-            net.load_state_dict(params_or_network)
-        if num_steps is None:
-            num_steps = int(getattr(task, "episode_len_sec", 8.0)
-                            * env_cfg.ctrl_freq) + 2
-        env_state, obs = env_reset()
-        alive = torch.ones(E, dtype=torch.bool, device=device)
-        rewards = []
-        with torch.no_grad():
-            for _ in range(num_steps):
-                mean = net(obs)[0]
-                env_state, next_obs, reward, term, trunc = env_step(
-                    env_state, mean.reshape(E, n_drones,
-                                            act_dim_per_drone))
-                if episodic:
-                    reward = torch.where(alive, reward, 0.0)
-                    alive = alive & ~(term | trunc)
-                rewards.append(reward)
-                obs = next_obs
-        return torch.stack(rewards).sum(dim=0)
-
-    update.many = update_many
+    update.many = chain_updates(update)
     update.env_path = env_path
     return init, update, evaluate, template

@@ -48,6 +48,9 @@ def test_scan_sees_the_port():
                  "gym_pybullet_drones_tpu_torch/envs/tasks.py",
                  "gym_pybullet_drones_tpu_torch/convert.py",
                  "gym_pybullet_drones_tpu_torch/rl/ppo.py",
+                 "gym_pybullet_drones_tpu_torch/rl/population.py",
+                 "gym_pybullet_drones_tpu_torch/examples/"
+                 "train_population.py",
                  "gym_pybullet_drones_tpu_torch/examples/learn.py",
                  "gym_pybullet_drones_tpu_torch/examples/"
                  "train_to_threshold.py",

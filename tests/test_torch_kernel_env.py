@@ -109,13 +109,14 @@ def _torch_tensor_path(tcfg, leaves, rpm, last_rpm):
             (st.pos, st.quat, st.vel, st.rpy_rates, st.ang_v)]
 
 
-def _port(tcfg, leaves, action, last_rpm, pid=None, emit_obs12=False):
+def _port(tcfg, leaves, action, last_rpm, pid=None, emit_obs12=False,
+          sub=SUB):
     state = TDynState(*(torch.from_numpy(a) for a in leaves))
     ctrl = None if pid is None else tpid.PIDState(
         *(torch.from_numpy(a) for a in pid))
     return kernel_env.env_ctrl_step(
         None if pid is None else TP.CF2X, tcfg.drone, tcfg.physics,
-        tcfg.num_drones, SUB, DT, CDT, tcfg.obstacles, state, ctrl,
+        tcfg.num_drones, sub, DT, CDT, tcfg.obstacles, state, ctrl,
         torch.from_numpy(action), torch.from_numpy(last_rpm), emit_obs12)
 
 
@@ -232,16 +233,20 @@ def test_env_ctrl_step_matches_pallas_interpret():
     """The TPU kernel itself under interpretation, every aero effect, a
     stacked pair, B = 2 (its own arithmetic order: tighter than the XLA
     comparison, 2e-5 / 1e-4; the ang-vel rows, which contact impulses reach
-    through 1/J, 5e-4 / 3e-4)."""
+    through 1/J, 5e-4 / 3e-4).  One substep: the interpreted kernel
+    unrolls its substeps, and its compile, which is this test's time,
+    grows with them; the XLA comparisons above hold the two-substep order
+    (stale drag, contact after the integration)."""
     n, b = 2, 2
     jcfg, tcfg = _cfgs("pyb_gnd_drag_dw", n)
     leaves = [a[:b * n] for a in _state(n, 11)]
     rpm, last = (a[:b * n] for a in _rpms(n, 12))
     jstate = JDynState(*(jnp.asarray(a) for a in leaves))
     jout, _, jrpm, jobs = pallas_env.env_ctrl_step(
-        None, jcfg.drone, jcfg.physics, n, SUB, DT, CDT, jcfg.obstacles,
+        None, jcfg.drone, jcfg.physics, n, 1, DT, CDT, jcfg.obstacles,
         jstate, None, jnp.asarray(rpm), jnp.asarray(last), True)
-    out, _, rpm_out, obs12 = _port(tcfg, leaves, rpm, last, emit_obs12=True)
+    out, _, rpm_out, obs12 = _port(tcfg, leaves, rpm, last, emit_obs12=True,
+                                   sub=1)
     for k in ("pos", "quat", "vel", "rpy_rates"):
         np.testing.assert_allclose(getattr(out, k).numpy(),
                                    np.asarray(getattr(jout, k)), rtol=1e-4,

@@ -59,6 +59,10 @@ def _j_batched(cfg, task, b):
 
 
 def test_fused_hover_matches_pallas_interpret():
+    """b = 8 pads to one 128-lane kernel block.  The time is the
+    interpreted kernel's compile, not the batch or the steps;
+    tests/test_fused.py compiles the same program (same config, B = 8),
+    so the persistent compilation cache shares it."""
     _compare(_j_fused, "hover", "rpm", b=8, steps=6, scale=0.3)
 
 
@@ -85,6 +89,8 @@ def test_fused_pid_family_matches_xla(act):
 
 
 def test_fused_one_d_pid_matches_pallas_interpret():
+    """One kernel block; the compile shared with tests/test_fused.py's
+    ONE_D_PID case at B = 8, as above."""
     _compare(_j_fused, "hover", "one_d_pid", b=8, steps=3, scale=0.3,
              atol=PID_ATOL)
 

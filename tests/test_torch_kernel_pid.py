@@ -59,6 +59,9 @@ def _hold(out, jstate, jpid_state, jrpm):
 
 
 def test_plain_pid_dyn_ctrl_step_matches_pallas_interpret():
+    """B = 16 pads to one 128-lane kernel block, the shape of
+    tests/test_pallas.py's case; the time is the interpretation, not the
+    batch."""
     b = 16
     jm, tm = models("cf2x")
     leaves, pid, tgts = _inputs(b, seed=4)

@@ -101,8 +101,47 @@ def test_torch_init_properties(hidden):
 
 
 def test_compute_dtype_not_ported():
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tmlp.ActorCritic(OBS_DIM, 4, compute_dtype=torch.bfloat16)
+    """Named for what it checked before `compute_dtype` was ported: now
+    the bf16 forward pass against flax's `ActorCritic(compute_dtype=
+    jnp.bfloat16)`.  Both round every product, bias add and tanh to bf16
+    and cast mean and value back to float32; measured on the CPU the two
+    agree bit for bit, held here to one bf16 step (2^-8) of each output's
+    scale.  Every output must be a bf16 number (the float32 forward's are
+    not), and the stacked population's bf16 forward its members' own."""
+    jnet = jmlp.ActorCritic(action_dim=4, hidden=(64, 64),
+                            log_std_init=-0.5, compute_dtype=jnp.bfloat16)
+    params = jax.jit(jnet.init)(jax.random.key(3),
+                                jnp.zeros((1, OBS_DIM), jnp.float32))
+    tnet = tmlp.ActorCritic(OBS_DIM, 4, (64, 64), log_std_init=-0.5,
+                            compute_dtype=torch.bfloat16)
+    sd = convert.actor_critic_state_dict_from_flax(
+        jax.tree.map(np.asarray, params))
+    tnet.load_state_dict(sd)
+    assert all(p.dtype == torch.float32 for p in tnet.parameters())
+    obs = _batch(7, rows=64)
+    jm, jl, jv = (np.asarray(x) for x in jax.jit(jnet.apply)(params, obs))
+    with torch.no_grad():
+        tm, tl, tv = tnet(torch.from_numpy(obs))
+        f32 = tmlp.ActorCritic(OBS_DIM, 4, (64, 64), log_std_init=-0.5)
+        f32.load_state_dict(sd)
+        fm, _, fv = f32(torch.from_numpy(obs))
+    assert tm.dtype == tv.dtype == tl.dtype == torch.float32
+    for got, want, full in ((tm, jm, fm), (tv, jv, fv)):
+        step = 2.0 ** -8 * float(np.abs(want).max())
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=step)
+        # computed in bf16: every output is a bf16 number, unlike float32's
+        assert torch.equal(got, got.bfloat16().float())
+        assert not torch.equal(full, full.bfloat16().float())
+    np.testing.assert_array_equal(tl.detach().numpy(), jl)
+    with pytest.raises(ValueError):
+        tmlp.PopulationActorCritic.from_members([tnet, f32])
+    pop = tmlp.PopulationActorCritic.from_members([tnet, tnet])
+    with torch.no_grad():
+        pm, pl, pv = pop(torch.from_numpy(np.stack([obs, obs])))
+    for k in range(2):
+        np.testing.assert_array_equal(pm[k].numpy(), tm.numpy())
+        np.testing.assert_array_equal(pv[k].numpy(), tv.numpy())
+        np.testing.assert_array_equal(pl[k, 0].detach().numpy(), jl)
 
 
 def test_convert_rejects_other_trees():
