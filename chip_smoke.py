@@ -16,7 +16,7 @@ contact), 4096 envs each — through `make_fused_rollout` and
 the card held against the same update on the CPU, the JAX package's PPO
 throughput configuration (Hover, DYN, 8192 envs) and `examples/learn.py`'s
 learning configuration (Hover, PYB, ONE_D_RPM, 64 envs); then RGB
-observations: the render kernel against its plain version
+observations: the render kernel bit for bit against its plain version
 (`ops/render.py`), the RGB Hover rollout through `make_batched_step` (256
 envs; `dyn_ctrl_step` and one render launch a control step), one pixel-PPO
 update on the card against the CPU, and the JAX package's pixel-PPO
@@ -315,14 +315,36 @@ def pyb_case_counts(st, params, obstacles):
 
 
 def render_ops_per_pixel(n_spheres, n_boxes, n_drones):
-    """Float32 operations one pixel needs, counted from `csrc/render.cu`
-    (each add, multiply, compare, select, sqrt, division and floor as one):
+    """Float32 operations one pixel needs, counted from the plain version
+    (`ops/render.py`), which finds, shades and keeps every primitive's hit:
+    the function's work, whatever a kernel skips (each add, multiply,
+    compare, select, sqrt, division and floor as one):
     the ray's offsets and direction 32, a sphere 57 (the quadratic 24, its
     roots and selects 9, the hit point and normal 15, the running minimum
     9), a box 79 (three slabs of 14, entry and exit 9, the normal 19, the
     running minimum 9), the plane 29, shading and depth 30.  Every pixel
     tests every primitive, so the count does not depend on the data."""
     return 91 + 57 * (n_spheres + n_drones) + 79 * n_boxes
+
+
+def render_inputs(gen, c, n, dev):
+    """(pos (c, 3), quat (c, 4)) of c cameras on `dev`: c // n envs of n
+    drones within some 0.3 m of a centre over the arena, rolled a little,
+    pitched from level to steeply down, any yaw; the first quarter of the
+    envs over negative x and y, pitched down 0.5-1.3 rad."""
+    from gym_pybullet_drones_tpu_torch.ops import quat as quat_ops
+    b = c // n
+    centre = gen.uniform([-1.5, -1.5, 0.1], [1.5, 1.5, 1.2], (b, 1, 3))
+    q = b // 4
+    centre[:q, :, :2] = gen.uniform(-1.5, -0.2, (q, 1, 2))
+    pos = (centre + gen.normal(0, 0.3, (b, n, 3))).reshape(c, 3)
+    pos[:, 2] = np.abs(pos[:, 2]) + 0.02
+    rpy = np.stack([gen.normal(0, 0.2, c), gen.uniform(-0.4, 1.2, c),
+                    gen.uniform(-np.pi, np.pi, c)], -1)
+    rpy[:q * n, 1] = gen.uniform(0.5, 1.3, q * n)
+    quat = quat_ops.rpy_to_quat(torch.from_numpy(rpy.astype(np.float32)))
+    return (torch.from_numpy(pos.astype(np.float32)).to(dev),
+            quat.to(dev).contiguous())
 
 
 def ptxas_figures(log):
@@ -419,7 +441,6 @@ def main():
     from gym_pybullet_drones_tpu_torch.ops import (
         kernel_dyn, kernel_env, kernel_fused, kernel_math, kernel_pid,
         kernel_render, render)
-    from gym_pybullet_drones_tpu_torch.ops import quat as quat_ops
     from gym_pybullet_drones_tpu_torch.ops.render_check import (
         CHECKER_TIE, DEPTH_ATOL, RGBA_ATOL, TIE_SHARE, compare_render,
         obs_ties)
@@ -1880,27 +1901,9 @@ def main():
     render_checks = []
     t_render = time.perf_counter()
 
-    def render_inputs(gen, c, n):
-        """(pos (c, 3), quat (c, 4)) on the card: c // n envs of n drones
-        within some 0.3 m of a centre over the arena, rolled a little,
-        pitched from level to steeply down, any yaw; the first quarter of
-        the envs over negative x and y, pitched down 0.5-1.3 rad."""
-        b = c // n
-        centre = gen.uniform([-1.5, -1.5, 0.1], [1.5, 1.5, 1.2], (b, 1, 3))
-        q = b // 4
-        centre[:q, :, :2] = gen.uniform(-1.5, -0.2, (q, 1, 2))
-        pos = (centre + gen.normal(0, 0.3, (b, n, 3))).reshape(c, 3)
-        pos[:, 2] = np.abs(pos[:, 2]) + 0.02
-        rpy = np.stack([gen.normal(0, 0.2, c), gen.uniform(-0.4, 1.2, c),
-                        gen.uniform(-np.pi, np.pi, c)], -1)
-        rpy[:q * n, 1] = gen.uniform(0.5, 1.3, q * n)
-        quat = quat_ops.rpy_to_quat(torch.from_numpy(rpy.astype(np.float32)))
-        return (torch.from_numpy(pos.astype(np.float32)).to(dev),
-                quat.to(dev).contiguous())
-
     def render_case(scene_name, n, c, width=64, height=48, timed=None):
         scene = getattr(render, f"{scene_name}_scene")()
-        p, q = render_inputs(rng, c, n)
+        p, q = render_inputs(rng, c, n, dev)
         run = lambda ds=True: kernel_render.render_drones(
             P.CF2X, scene, p, q, n, width, height, depth_seg=ds)
         plain = lambda: kernel_render.render_drones_plain(
@@ -1910,9 +1913,15 @@ def main():
                "cameras": c, "width": width, "height": height,
                "geometry": _build.launch_geometry("render", c,
                                                   width * height)}
-        rec.update(compare_render(f"render {scene_name} n={n} c={c}", got,
-                                  ref, p, render.camera_forward(q),
+        name = f"render {scene_name} n={n} c={c} {width}x{height}"
+        rec.update(compare_render(name, got, ref, p, render.camera_forward(q),
                                   P.CF2X.l))
+        # built without FMA contraction, the kernel rounds every product
+        # and sum as the plain version does: no tie may differ either
+        if not rec["bitwise_equal"]:
+            raise AssertionError(f"{name}: not bit for bit its plain "
+                                 f"version ({rec['seg_differ']} seg, "
+                                 f"{rec['checker_ties']} checker ties)")
         rec["ids"] = torch.unique(ref[2]).tolist()
         rec["max_abs_err"] = max(rec["rgba_max_abs_err"],
                                  rec["depth_max_abs_err"])
@@ -1940,6 +1949,12 @@ def main():
     render_case("landmark", 2, 64, width=40, height=30)  # a partial block
     render_case("landmark", 1, 256, timed="hover256_rgb")
     render_case("landmark", 1, 512, timed="ppo_rgb512")
+    # a prime number of cameras, and more cameras than the grid's 65535
+    # rows, so that the camera loop turns twice in the first blocks (a
+    # small image: one partial block of pixels a camera, the plain version
+    # cheap)
+    render_case("landmark", 1, 37)
+    render_case("landmark", 4, 65536 + 100, width=16, height=12)
     torch.cuda.synchronize()
     emit({"phase": "render_checks", "rgba_atol": RGBA_ATOL,
           "depth_atol": DEPTH_ATOL, "tie_share": TIE_SHARE,
@@ -1982,6 +1997,9 @@ def main():
                              "launches for the reset image")
     reset_ties = obs_ties("hover256_rgb reset obs, kernel vs plain",
                           sides["cuda"][0], reset_plain)
+    if not torch.equal(sides["cuda"][0].reshape(-1), reset_plain.reshape(-1)):
+        raise AssertionError("hover256_rgb: the reset image is not bit for "
+                             "bit its plain version")
     ties = obs_ties("hover256_rgb reset obs", sides["cuda"][0],
                     sides["cpu"][0].to(dev))
     rgb_err = 0.0
@@ -2230,7 +2248,9 @@ def main():
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                 "library_ms": None, "blocks": rec["geometry"][0],
                 "threads": rec["geometry"][1],
-                "registers": ptxas.get(name, {}).get("registers")})
+                **{k: ptxas.get(name, {}).get(k) for k in (
+                    "registers", "stack_frame_bytes", "spill_store_bytes",
+                    "spill_load_bytes")}})
             if name in kernel_floors:
                 kernels[-1].update(launch_floor_ms=launch_floor_ms,
                                    **kernel_floors[name])

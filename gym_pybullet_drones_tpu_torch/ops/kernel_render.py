@@ -9,14 +9,20 @@ a frame, so on the card it is one hand-written kernel,
 Cameras sit at the drones of a flat (env x drone) batch: camera c at
 position `pos[c]` with attitude `quat[c]`, seeing the scene and the
 `group` drones of its env (rows `(c // group) * group ...` of `pos`).
-One thread per pixel; a block holds 256 pixels of one camera, whose basis
-and drones it loads once.  The kernel writes rgba as one float4 per pixel
+A block takes 1024 consecutive pixels of one camera, 4 a thread; it puts
+what the camera's rays share (the basis, each sphere's and box's terms
+that depend on the eye only, the pixel offsets of each row and column)
+into shared memory once.  The kernel writes rgba as one float4 per pixel
 straight into the (C, H*W*4) observation rows, in HWC order (the JAX
 layout, and the CNN's flattened input); depth and segmentation only when
 asked.
 
-What bounds it on an H100: the 16 bytes of rgba a pixel writes, against
-some 400 float32 operations a pixel (`PERF.md`).
+What bounds it on an H100: its float32 work, some 420 operations a pixel
+against 67 TFLOP/s, not the 16 bytes of rgba a pixel writes.  It is built
+without FMA contraction, to be bit for bit `ops/render.py`, so it issues
+each product and sum as its own instruction; its design issues each of
+them once per camera, ray or winning hit where the plain version repeats
+them per pixel or per primitive (the source's note, `PERF.md`).
 
 `render_drones_plain` is the same function in plain PyTorch; the wrapper
 uses it only for tensors that lie on the CPU.  On a CUDA tensor it
