@@ -27,6 +27,15 @@ for all of them) held member by member against the single-policy update
 and as a whole against the CPU, the JAX package's population throughput
 configuration (K = 8 x 1024 envs against one policy at 1024 envs), and a
 bf16 (`compute_dtype="bfloat16"`) update on the card against the CPU.
+After the RGB phases, randomized resets: `make_batched_step` with reset
+noise (Hover 4096 envs on K1, the routing fleet of 4 x 4096 on K4 and on
+K5) on the card against the CPU from one seed, and its env-steps/s against
+the same task without noise; the class adapters (`envs/gym_adapter.py`):
+each aviary on the card against the CPU, the drones' cameras from the
+render kernel bit for bit its plain version, `rpm_override` against
+`CtrlAviary`, and the control steps a second of each device; and the
+examples: `examples/pid.py` cut to 2 s of flight, `examples/swarm.py` at
+its full width (4096 fleets of 4, 8 s).
 Any failed phase raises and the process exits non-zero.  It imports only
 torch, numpy and the port.
 
@@ -37,7 +46,7 @@ Output: one JSON object per line, in order `env`, `build`,
 `population_update_parity`, `ppo_population8x1024`,
 `population_kernel_checks`, `ppo_bf16_parity`,
 `render_checks`, `hover256_rgb`, `ppo_rgb_update_parity`, `ppo_rgb512`,
-`timing`, then the `{"kernels": [...]}` summary (one entry per kernel and
+`reset_noise`, `gym_adapter`, `examples`, `timing`, then the `{"kernels": [...]}` summary (one entry per kernel and
 main-path shape), then the card's name and power limit as nvidia-smi prints them,
 then `{"ok": true, "device": {...}}` as the last line.
 """
@@ -435,12 +444,13 @@ def main():
         return 1
     from gym_pybullet_drones_tpu_torch import _build, convert, params as P
     from gym_pybullet_drones_tpu_torch.envs import (
-        AviaryConfig, HoverTask, MultiHoverTask, fused_spec,
+        AviaryConfig, HoverTask, MultiHoverTask, core, fused_spec,
         make_batched_step, make_fused_rollout, make_routing_config)
+    from gym_pybullet_drones_tpu_torch.envs.core import map_leaves
     from gym_pybullet_drones_tpu_torch.envs.tasks import TASK_ROUTING
     from gym_pybullet_drones_tpu_torch.ops import (
         kernel_dyn, kernel_env, kernel_fused, kernel_math, kernel_pid,
-        kernel_render, render)
+        kernel_render, render, quat as quat_ops)
     from gym_pybullet_drones_tpu_torch.ops.render_check import (
         CHECKER_TIE, DEPTH_ATOL, RGBA_ATOL, TIE_SHARE, compare_render,
         obs_ties)
@@ -2166,6 +2176,450 @@ def main():
     dyn_case(P.CF2X, 512, False, timed="ppo_rgb512",
              gen=np.random.default_rng(SEED + 9))
 
+    # ---- randomized resets: make_batched_step with reset noise ----
+    # The card's path against the CPU's plain versions from the same seed:
+    # both draw the noise from one CPU generator (envs/fast.py ResetNoise),
+    # so the draws are identical bit for bit.  hover4096 (K1, RPM) runs
+    # free; the two routing fleets (K4 and K5, embedded DSL-PID) step from
+    # the CPU's state at each step, as the PID paths of the rollout phases
+    # do (two free-running PID paths drift apart; the drift is recorded).
+    # A flag may differ only within FLAG_MARGIN of its threshold; such an
+    # env resets on one side only and leaves the comparison (free run) or
+    # that step's comparison (re-anchored).
+    def no_noise(task):
+        return dataclasses.replace(task, reset_pos_noise=0.0,
+                                   reset_rpy_noise=0.0, reset_vel_noise=0.0)
+
+    def on(device, state):
+        return map_leaves(lambda x: x.to(device), state)
+
+    def launch_counts():
+        return {"dyn_ctrl_step": kernel_dyn.launches,
+                "pid_dyn_ctrl_step": kernel_pid.launches,
+                "env_ctrl_step": kernel_env.launches,
+                "fused_env_step": kernel_fused.launches,
+                "render": kernel_render.launches}
+
+    def stepped_rows(flat, n):
+        """Per drone, the obs12 rows `flag_margin` reads, from a flat state
+        that was stepped and not reset."""
+        rows = torch.cat([flat.pos, quat_ops.quat_to_rpy(flat.quat),
+                          flat.vel, flat.ang_v], dim=-1)
+        return [rows[d::n].t() for d in range(n)]
+
+    def noise_rollout(name, cfg, task, b, action, anchored, steps=32):
+        """`steps` control steps of `action` through make_batched_step on
+        the card and on the CPU from one seed; returns the record and the
+        card run's launch counts."""
+        n, obs_dim = cfg.num_drones, task.obs_dim(cfg)
+        spec = fused_spec(cfg, no_noise(task))
+        routing = task.row_consts(cfg).task_id == TASK_ROUTING
+        tol = PID_OBS_TOL if anchored else (ATOL, RTOL)
+        otol = [torch.full((n * obs_dim,), t) for t in tol]
+        if cfg.physics != Physics.DYN:
+            for d in range(n):
+                otol[0][d * obs_dim + 9:d * obs_dim + 12] = PYB_ANGV_TOL[0]
+                otol[1][d * obs_dim + 9:d * obs_dim + 12] = PYB_ANGV_TOL[1]
+        c_reset, c_step = make_batched_step(cfg, task, b, obs_layout="flat",
+                                            device="cpu")
+        _, c_free = make_batched_step(cfg, task, b, autoreset=False,
+                                      obs_layout="flat", device="cpu")
+        init = make_batched_step(cfg, no_noise(task), b,
+                                 device="cpu")[0]()[0]
+        acts = action.expand(b, n, -1).contiguous()
+        acts_dev = acts.to(dev)
+        reset_counts()
+        g_reset, g_step = make_batched_step(cfg, task, b, obs_layout="flat",
+                                            device=dev)
+        cs, co = c_reset(SEED)
+        gs, go = g_reset(SEED)
+        err = check_close(f"{name} reset obs", go.cpu(), co, tol=otol)
+        ok = torch.ones(b, dtype=torch.bool)
+        flag_ties = nn_ties = resets = 0
+        for t in range(steps):
+            prev = cs
+            if anchored:
+                gs = on(dev, cs)
+            cs, co, cr, cte, ctr = c_step(cs, acts)
+            gs, go, gr, gte, gtr = g_step(gs, acts_dev)
+            go, gr, gte, gtr = go.cpu(), gr.cpu(), gte.cpu(), gtr.cpu()
+            differ = ok & ((gte != cte) | (gtr != ctr))
+            if differ.any():
+                free = c_free(prev, acts)[0]
+                margin = flag_margin(spec, stepped_rows(free, n),
+                                     prev.step_counter.float())
+                if (differ & (margin > FLAG_MARGIN)).any():
+                    raise AssertionError(f"{name}: flags differ away from "
+                                         f"a tie at step {t}")
+                flag_ties += int(differ.sum())
+            keep = ok & ~differ
+            if not anchored:
+                ok = keep
+            if routing:
+                # a nearest neighbour decided by rounding: take the CPU's
+                beyond = (go - co).abs() > otol[0] + otol[1] * co.abs()
+                tie = nn_tie(cs.pos.reshape(b, n, 3))[:, None] & beyond
+                tie[:, [c for c in range(n * obs_dim)
+                        if c % obs_dim < obs_dim - 3]] = False
+                nn_ties += int(tie.any(dim=1).sum())
+                go = torch.where(tie, co, go)
+            if keep.any():
+                err = max(err, check_close(f"{name} obs t={t}", go[keep],
+                                           co[keep], tol=otol),
+                          check_close(f"{name} reward t={t}",
+                                      gr[keep][None], cr[keep][None],
+                                      tol=tol))
+            # the card's reset states lie within the noise of the reset
+            rows = (gte | gtr).repeat_interleave(n)
+            resets += int((gte | gtr).sum())
+            if rows.any():
+                r_dev = rows.to(dev)
+                dev_of = {
+                    "pos": ((gs.pos[r_dev].cpu() - init.pos[rows]).abs(),
+                            task.reset_pos_noise),
+                    "rpy": (quat_ops.quat_to_rpy(gs.quat[r_dev]).abs().cpu(),
+                            task.reset_rpy_noise),
+                    "vel": (gs.vel[r_dev].abs().cpu(),
+                            task.reset_vel_noise)}
+                for what, (x, bound) in dev_of.items():
+                    if float(x.max()) > bound + 1e-5:
+                        raise AssertionError(f"{name}: a reset {what} "
+                                             f"{float(x.max())} beyond "
+                                             f"{bound}")
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in launch_counts().items() if v}
+        g_noise, c_noise = g_step.reset_noise(), c_step.reset_noise()
+        if not (g_noise.index == c_noise.index == steps + 1 and torch.equal(
+                g_noise.block.cpu(), c_noise.block)):
+            raise AssertionError(f"{name}: the card's draws are not the "
+                                 "CPU's")
+        if resets == 0:
+            raise AssertionError(f"{name}: no env was reset")
+        out = {"envs": b, "steps": steps, "anchored": anchored,
+               "card_vs_cpu_max_abs_err": err, "resets": resets,
+               "flag_ties": flag_ties, "envs_left_out": int((~ok).sum()),
+               "draws_bitwise_equal": True, "draws": c_noise.index,
+               "noise": [task.reset_pos_noise, task.reset_rpy_noise,
+                         task.reset_vel_noise],
+               "action": action.reshape(-1).tolist(), "launches": counts}
+        if routing:
+            out["nearest_neighbour_ties"] = nn_ties
+        if anchored:
+            # for the record, held to no tolerance: 8 free-running steps
+            cs, _ = c_reset(SEED)
+            gs, _ = g_reset(SEED)
+            drift = []
+            for t in range(8):
+                cs, co = c_step(cs, acts)[:2]
+                gs, go = g_step(gs, acts_dev)[:2]
+                drift.append(float((go.cpu() - co).abs().max()))
+            out["free_running_obs_drift_by_step"] = drift
+        return out, counts
+
+    def noise_rates(cfg, task, b, action, steps=64):
+        """env-steps/s of the randomized make_batched_step against the same
+        task without noise, in turns, best of 3 each, a host readback of
+        the reward sum inside the window."""
+        acts = action.expand(b, cfg.num_drones, -1).to(dev)
+        best = {}
+        for _ in range(3):
+            for label, tk in (("randomized", task),
+                              ("deterministic", no_noise(task))):
+                r_fn, s_fn = make_batched_step(cfg, tk, b,
+                                               obs_layout="flat", device=dev)
+                state, _ = r_fn(SEED)
+                total = torch.zeros((), device=dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for t in range(steps):
+                    state, _, reward, _, _ = s_fn(state, acts)
+                    total = total + reward.sum()
+                torch.cuda.synchronize()
+                readback = float(total)
+                rate = steps * b / (time.perf_counter() - t0)
+                if not np.isfinite(readback):
+                    raise AssertionError("reset_noise: non-finite rewards")
+                best[label] = max(best.get(label, 0.0), rate)
+        best["cost_ms_per_step"] = (1 / best["randomized"]
+                                    - 1 / best["deterministic"]) * b * 1e3
+        return best
+
+    t_noise = time.perf_counter()
+    tilt = torch.tensor([1.0, 1.0, -1.0, -1.0])
+    noise_cases = (
+        # Hover on DYN (K1): the JAX package's randomized-reset test's
+        # noise and a velocity term; the tilt action rolls the drones over
+        # the 0.4 rad limit
+        ("hover4096", hover_cfg(), HoverTask(
+            act=ActionType.RPM, reset_pos_noise=0.2, reset_rpy_noise=0.1,
+            reset_vel_noise=0.05), 4096, tilt, False),
+        # routing on DYN (K4): a lateral waypoint tumbles the drones (the
+        # DYN roll-torque quirk) beyond the 0.8 rad limit
+        ("routing4x4096", rcfg, dataclasses.replace(
+            rtask, reset_pos_noise=0.05, reset_rpy_noise=0.3,
+            reset_vel_noise=0.2), 4096, torch.tensor([1.0, 0.0, 0.0]),
+         True),
+        # routing on PYB (K5): no waypoint tilts a PYB drone past 0.8 rad,
+        # so the attitude noise reaches beyond it (0.9 rad): an env that
+        # draws such a tilt truncates on its first step and redraws
+        ("routing4x4096_pyb", pcfg, dataclasses.replace(
+            ptask, reset_pos_noise=0.05, reset_rpy_noise=0.9,
+            reset_vel_noise=0.2), 4096, torch.tensor([1.0, 0.0, 0.0]),
+         True))
+    noise_records, noise_counts = {}, {}
+    for name, ncfg, ntask, nb, nact, anchored in noise_cases:
+        rec, counts = noise_rollout(name, ncfg, ntask, nb, nact, anchored)
+        noise_counts[name] = counts
+        noise_records[name] = rec
+    expect = {"hover4096": "dyn_ctrl_step",
+              "routing4x4096": "pid_dyn_ctrl_step",
+              "routing4x4096_pyb": "env_ctrl_step"}
+    for name, counts in noise_counts.items():
+        if counts != {expect[name]: 32}:
+            raise AssertionError(f"reset_noise {name}: launches {counts}")
+    for name, ncfg, ntask, nb, nact, _ in noise_cases:
+        noise_records[name]["env_steps_per_s"] = noise_rates(ncfg, ntask,
+                                                             nb, nact)
+    emit({"phase": "reset_noise", "gpu": card, "cases": noise_records,
+          "seconds": time.perf_counter() - t_noise,
+          "note": "card against the CPU's plain versions from one seed; "
+                  "hover free-running, routing re-anchored on the CPU's "
+                  "state at each step; env_steps_per_s: best of 3 x 64 "
+                  "steps of the same action, host clock, a readback of "
+                  "the reward sum inside the window"})
+
+    # ---- the class adapters: each aviary on the card against the CPU ----
+    # core.step on the card is plain tensor code (no kernel); the drones'
+    # cameras are one render launch a call.  The reset obs of the DYN
+    # aviaries must be equal, the PYB ones (attitudes from a yaw) within
+    # the tolerances; 8 steps re-anchored on the CPU's state; then the
+    # control steps a second of each device, 48 steps from a reset.
+    t_adapter = time.perf_counter()
+    from gym_pybullet_drones_tpu_torch.envs import gym_adapter as gad
+    from gym_pybullet_drones_tpu_torch.examples import pid as pid_example
+    # examples/pid.py's helix start
+    pid_xyz = np.array([[0.3 * np.cos(i / 6 * 2 * np.pi + np.pi / 2),
+                         0.3 * np.sin(i / 6 * 2 * np.pi + np.pi / 2) - 0.3,
+                         0.1 + i * 0.05] for i in range(3)])
+    pid_rpy = np.array([[0, 0, i * (np.pi / 2) / 3] for i in range(3)])
+    vel_xyz = np.array([[0, 0, .1], [.3, 0, .1], [.6, 0, .1], [.9, 0, .1]])
+    vel_rpy = np.array([[0, 0, 0], [0, 0, np.pi / 3], [0, 0, np.pi / 4],
+                        [0, 0, np.pi / 2]])
+    arng = np.random.default_rng(SEED + 10)
+    adapter_cases = (
+        # examples/pid.py's configuration: 3 drones, PYB, obstacles, 240/48
+        ("CtrlAviary", lambda d: gad.CtrlAviary(
+            num_drones=3, initial_xyzs=pid_xyz, initial_rpys=pid_rpy,
+            physics=Physics.PYB, neighbourhood_radius=10, pyb_freq=240,
+            ctrl_freq=48, obstacles=True, device=d),
+         lambda e: e.HOVER_RPM * (1 + 0.02 * arng.normal(size=(3, 4))),
+         False),
+        # examples/pid_velocity.py's: 4 drones, PYB, 240/48
+        ("VelocityAviary", lambda d: gad.VelocityAviary(
+            num_drones=4, initial_xyzs=vel_xyz, initial_rpys=vel_rpy,
+            physics=Physics.PYB, neighbourhood_radius=10, pyb_freq=240,
+            ctrl_freq=48, device=d),
+         lambda e: np.concatenate([arng.normal(size=(4, 3)),
+                                   arng.uniform(size=(4, 1))], axis=-1),
+         False),
+        ("HoverAviary", lambda d: gad.HoverAviary(physics=Physics.DYN,
+                                                  device=d),
+         lambda e: arng.uniform(-1, 1, size=(1, 4)), True),
+        ("MultiHoverAviary", lambda d: gad.MultiHoverAviary(
+            physics=Physics.DYN, device=d),
+         lambda e: arng.uniform(-1, 1, size=(2, 4)), True))
+    adapter_records = {}
+    reset_counts()
+    for name, make, act_of, dyn in adapter_cases:
+        envs = {"cpu": make("cpu"), "cuda": make(dev)}
+        obs = {k: e.reset(seed=SEED)[0] for k, e in envs.items()}
+        pid_path = name == "VelocityAviary"
+        tol = PID_OBS_TOL if pid_path else (ATOL, RTOL)
+        ctol = [np.full(obs["cpu"].shape[-1], t) for t in tol]
+        if not dyn:
+            # the state vector's world ang-vel columns
+            ctol[0][13:16], ctol[1][13:16] = PYB_ANGV_TOL
+        if dyn and not np.array_equal(obs["cuda"], obs["cpu"]):
+            raise AssertionError(f"{name}: the card's reset obs differs")
+
+        def close(g, c, what, atol=ctol[0], rtol=ctol[1]):
+            if not np.all(np.abs(g - c) <= atol + rtol * np.abs(c)):
+                raise AssertionError(f"{name}: {what} beyond the tolerance, "
+                                     f"max abs err {np.abs(g - c).max()}")
+            return float(np.abs(g - c).max())
+        err = close(obs["cuda"], obs["cpu"], "reset obs")
+        for t in range(8):
+            envs["cuda"].state = on(dev, envs["cpu"].state)
+            a = act_of(envs["cpu"]).astype(np.float32)
+            (co, cr, cte, ctr, _), (go, gr, gte, gtr, _) = (
+                envs["cpu"].step(a), envs["cuda"].step(a))
+            err = max(err, close(go, co, f"obs t={t}"),
+                      close(np.float32(gr), np.float32(cr), f"reward t={t}",
+                            *tol))
+            if (cte, ctr) != (gte, gtr):
+                raise AssertionError(f"{name}: flags differ at step {t}")
+        rates = {}
+        for where, env in envs.items():
+            env.reset()
+            a = act_of(env).astype(np.float32)
+            t0 = time.perf_counter()
+            for _ in range(48):
+                env.step(a)
+            rates[where] = 48 / (time.perf_counter() - t0)
+        adapter_records[name] = {
+            "num_drones": envs["cpu"].NUM_DRONES,
+            "physics": envs["cpu"].cfg.physics.value,
+            "reset_obs_equal": bool(np.array_equal(obs["cuda"], obs["cpu"])),
+            "card_vs_cpu_max_abs_err": err,
+            "control_steps_per_s": rates}
+    # the cameras of examples/pid.py's fleet, after its 8 steps: the
+    # kernel (with depth and seg) against its plain version on the card
+    ctrl = adapter_cases[0][1](dev)
+    ctrl.reset()
+    for _ in range(8):
+        ctrl.step(np.full((3, 4), ctrl.HOVER_RPM * 1.01, np.float32))
+    before = kernel_render.launches
+    images = [ctrl.getDroneImages(d) for d in range(3)]
+    image_launches = kernel_render.launches - before
+    plain = kernel_render.render_drones_plain(
+        P.CF2X, render.landmark_scene(), ctrl.state.pos, ctrl.state.quat, 3)
+    for d, (rgb, dep, seg) in enumerate(images):
+        if not (np.array_equal(rgb, plain[0][d].reshape(48, 64, 4).cpu()
+                               .numpy())
+                and np.array_equal(dep, plain[1][d].cpu().numpy())
+                and np.array_equal(seg, plain[2][d].cpu().numpy())):
+            raise AssertionError(f"getDroneImages({d}): not bit for bit "
+                                 "its plain version")
+    # rpm_override on the card: a HoverAviary state stepped with raw rpm
+    # is CtrlAviary's step with that rpm, bit for bit, and leaves the
+    # action ring alone
+    rl_env = gad.HoverAviary(physics=Physics.DYN, device=dev)
+    rl_env.reset()
+    for _ in range(3):
+        rl_env.step(np.full((1, 4), 0.2, np.float32))
+    rpm = torch.full((1, 4), rl_env.HOVER_RPM * 1.02, device=dev)
+    over = core.step(rl_env.cfg, rl_env.task, rl_env.state, None,
+                     rpm_override=rpm)[0]
+    direct = gad.CtrlAviary(physics=Physics.DYN, pyb_freq=240, ctrl_freq=30,
+                            device=dev)
+    if direct.cfg != rl_env.cfg:
+        raise AssertionError("rpm_override: the configurations differ")
+    direct.state = rl_env.state
+    direct.step(rpm)
+    for f in ("pos", "quat", "vel", "rpy_rates", "ang_v", "last_rpm",
+              "step_counter"):
+        if not torch.equal(getattr(over, f), getattr(direct.state, f)):
+            raise AssertionError(f"rpm_override: {f} differs from "
+                                 "CtrlAviary's step")
+    if not torch.equal(over.action_buffer, rl_env.state.action_buffer):
+        raise AssertionError("rpm_override pushed the action ring")
+    torch.cuda.synchronize()
+    adapter_counts = {k: v for k, v in launch_counts().items() if v}
+    if adapter_counts != {"render": 3} or image_launches != 3:
+        raise AssertionError(f"gym_adapter: launches {adapter_counts}")
+    # the render kernel at getDroneImages' shape: 3 cameras with depth and
+    # seg, 24 bytes a pixel written
+    cam_pos, cam_quat = ctrl.state.pos, ctrl.state.quat
+    scene = render.landmark_scene()
+    run_img = lambda: kernel_render.render_drones(
+        P.CF2X, scene, cam_pos, cam_quat, 3, depth_seg=True)
+    plain_img = lambda: kernel_render.render_drones_plain(
+        P.CF2X, scene, cam_pos, cam_quat, 3)
+    npix = 3 * 48 * 64
+    img_ops = render_ops_per_pixel(len(scene.sphere_radius),
+                                   len(scene.box_id), 3)
+    t_bytes = (24 * npix + 28 * 3) / HBM_BYTES_PER_S * 1e3
+    t_ops = img_ops * npix / FP32_OPS_PER_S * 1e3
+    summary[("render", "gym_adapter_images")] = {
+        "max_abs_err": 0.0, "ms": graph_ms(run_img),
+        "plain_ms": eager_ms(plain_img, 5, 1),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "geometry": _build.launch_geometry("render", 3, 48 * 64)}
+    emit({"phase": "gym_adapter", "gpu": card, "aviaries": adapter_records,
+          "images_bitwise_equal": True, "image_launches": image_launches,
+          "rpm_override_equals_ctrl_step": True,
+          "launches": adapter_counts,
+          "render_ms": summary[("render", "gym_adapter_images")]["ms"],
+          "seconds": time.perf_counter() - t_adapter,
+          "note": "control_steps_per_s: 48 steps of one action from a "
+                  "reset, host clock, each step reading its obs, reward "
+                  "and flags back to numpy"})
+
+    # ---- the examples: pid.py (cut) and swarm.py at full width ----
+    t_examples = time.perf_counter()
+    reset_counts()
+    t0 = time.perf_counter()
+    logger = pid_example.run(plot=False, duration_sec=2, device=dev,
+                             output_folder="build/chip_smoke/pid")
+    pid_seconds = time.perf_counter() - t0
+    z_err = [abs(float(np.mean(logger.states[j, 2, -48:]))
+                 - (0.1 + j * 0.05)) for j in range(3)]
+    if max(z_err) >= 0.1:
+        raise AssertionError(f"pid.py: altitude errors {z_err}")
+    pid_counts = {k: v for k, v in launch_counts().items() if v}
+    if pid_counts:
+        raise AssertionError(f"pid.py launched kernels: {pid_counts}")
+    from gym_pybullet_drones_tpu_torch.examples import swarm as swarm_example
+    reset_counts()
+    sw_envs, sw_drones, sw_sec = 4096, 4, 8       # swarm.py's defaults
+    _, sw_state, arrived, mean_err, sw_steps, sw_seconds = \
+        swarm_example.fly(sw_envs, sw_drones, sw_sec, dev)
+    torch.cuda.synchronize()
+    swarm_counts = {k: v for k, v in launch_counts().items() if v}
+    if swarm_counts != {"env_ctrl_step": sw_steps + 1}:
+        raise AssertionError(f"swarm.py: launches {swarm_counts}")
+    # every fleet flies the same plan from the same start: the 4096 fleets
+    # end bit for bit alike; and the CPU's plain versions fly one fleet
+    # the same 8 s: the same drones arrive (within 15 cm of their goals)
+    sw_pos = sw_state.pos.reshape(sw_envs, sw_drones, 3)
+    if not torch.equal(sw_pos, sw_pos[:1].expand_as(sw_pos)):
+        raise AssertionError("swarm.py: the fleets differ from one another")
+    t0 = time.perf_counter()
+    _, ref_state, ref_arrived, ref_err, _, _ = swarm_example.fly(
+        1, sw_drones, sw_sec, "cpu")
+    ref_seconds = time.perf_counter() - t0
+    goals = torch.tensor(make_routing_config(num_drones=sw_drones)[1]
+                         .destinations)
+    card_goal_err = torch.linalg.norm(sw_pos[0].cpu() - goals, dim=-1)
+    cpu_goal_err = torch.linalg.norm(ref_state.pos - goals, dim=-1)
+    if not (torch.isfinite(sw_pos).all() and arrived > 0
+            and torch.equal(card_goal_err < 0.15, cpu_goal_err < 0.15)):
+        raise AssertionError(f"swarm.py: goal errors {card_goal_err} on the "
+                             f"card, {cpu_goal_err} on the CPU")
+    emit({"phase": "examples", "gpu": card,
+          "pid": {"duration_sec": 2, "control_steps": 96,
+                  "cut": "2 s of flight (96 control steps) of the 12 s "
+                         "demo", "altitude_errors": z_err,
+                  "seconds": pid_seconds,
+                  "control_steps_per_s": 96 / pid_seconds},
+          "swarm": {"envs": sw_envs, "drones": sw_drones,
+                    "duration_sec": sw_sec, "control_steps": sw_steps,
+                    "arrived_share": arrived, "mean_goal_error": mean_err,
+                    "seconds": sw_seconds,
+                    "env_steps_per_s": sw_envs * sw_steps / sw_seconds,
+                    "launches": swarm_counts, "fleets_bitwise_equal": True,
+                    "goal_errors": card_goal_err.tolist(),
+                    "cpu_one_fleet": {"arrived_share": ref_arrived,
+                                      "goal_errors": cpu_goal_err.tolist(),
+                                      "seconds": ref_seconds}},
+          "seconds": time.perf_counter() - t_examples,
+          "note": "pid: host clock around run() (the logger's files "
+                  "included); swarm: the timed loop of fly(), one warm-up "
+                  "step before it, a readback of the reward sum inside; "
+                  "the CPU's fleet is the plain versions' reference, "
+                  "free-running, compared by which drones arrive"})
+    for name, key in (("reset_noise_hover4096", ("dyn_ctrl_step",
+                                                 "hover4096")),
+                      ("reset_noise_routing4x4096", ("pid_dyn_ctrl_step",
+                                                     "routing4x4096")),
+                      ("reset_noise_routing4x4096_pyb", (
+                          "env_ctrl_step", "routing4x4096_pyb")),
+                      ("swarm4096x4", ("env_ctrl_step",
+                                       "routing4x4096_pyb"))):
+        # the same kernel at the same shape, timed above
+        summary[(key[0], name)] = dict(summary[key], timed_as=key[1])
+
     # ---- timing: env-steps/s, host readback inside the window ----
     def steps_per_s(cfg, task, b, steps, scale=0.1):
         acts = scale * torch.randn(
@@ -2235,7 +2689,11 @@ def main():
                            ("ppo_hover_pyb_learn", learn_counts),
                            ("ppo_population8x1024", pop_counts),
                            ("hover256_rgb", rgb_counts),
-                           ("ppo_rgb512", rgb512_counts)):
+                           ("ppo_rgb512", rgb512_counts),
+                           *(("reset_noise_" + k, v)
+                             for k, v in noise_counts.items()),
+                           ("gym_adapter_images", adapter_counts),
+                           ("swarm4096x4", swarm_counts)):
         for name in counts:
             rec = summary[(name, config)]
             kernels.append({

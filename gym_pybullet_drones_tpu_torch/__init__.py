@@ -9,9 +9,12 @@ at first use by `_build.py`).
 Ported so far: the batched rollout path — `envs.fast.make_fused_rollout`
 and `envs.fast.make_batched_step` — and `envs.core.step` for HoverTask,
 MultiHoverTask and the routing fleet, every action type, every physics mode
-(DYN and the PYB family with its contacts and aero effects), and what they
-stand on.  ROADMAP.md lists what is still to port.  No Gymnasium ids are
-registered yet.
+(DYN and the PYB family with its contacts and aero effects), randomized
+resets, PPO and population training, RGB observations, the class adapters
+(`envs.gym_adapter`: CtrlAviary, VelocityAviary, HoverAviary,
+MultiHoverAviary, BatchedEnv) and the examples, and what they stand on.
+ROADMAP.md lists what is still to port.  No Gymnasium ids are registered:
+the port does without gymnasium.
 
 Every entry point takes a `device`; None means the CUDA card and raises
 where there is none.

@@ -1,11 +1,15 @@
-"""Environments: functional core, task layer, fast batched stepping."""
+"""Environments: functional core, task layer, fast batched stepping, class
+adapters."""
 from gym_pybullet_drones_tpu_torch.envs.core import (  # noqa: F401
     AviaryConfig,
     EnvState,
     adjacency_matrix,
+    has_reset_noise,
+    initial_state,
     next_waypoint,
     normalized_action_to_rpm,
     reset,
+    reset_draws,
     state_vector,
     step,
     step_autoreset,
@@ -22,7 +26,18 @@ from gym_pybullet_drones_tpu_torch.envs.routing import (  # noqa: F401
     make_routing_config,
 )
 from gym_pybullet_drones_tpu_torch.envs.fast import (  # noqa: F401
+    ResetNoise,
     fused_spec,
     make_batched_step,
     make_fused_rollout,
 )
+from gym_pybullet_drones_tpu_torch.envs.gym_adapter import (  # noqa: F401
+    OBSTACLE_SPHERES,
+    BatchedEnv,
+    CtrlAviary,
+    FunctionalAviary,
+    HoverAviary,
+    MultiHoverAviary,
+    VelocityAviary,
+)
+from gym_pybullet_drones_tpu_torch.envs.spaces import Box  # noqa: F401

@@ -45,8 +45,10 @@ class EnvState(NamedTuple):
     """Full simulation state (N = num_drones; leading batch dims allowed).
 
     `ctrl_state` is a nested tuple: code that walks the leaves goes through
-    `map_leaves`.  The reset-noise generator state of the JAX package's
-    EnvState joins when randomized resets are ported.
+    `map_leaves`.  Where the JAX package's EnvState carries a PRNG key for
+    randomized resets, the port carries none: the reset noise comes from a
+    CPU `torch.Generator` that the caller owns (`reset`, `step_autoreset`,
+    `envs/fast.py`'s `ResetNoise`).
     """
 
     pos: torch.Tensor            # (..., N, 3)
@@ -235,44 +237,96 @@ def _apply_physics_substep(cfg: AviaryConfig, state: EnvState,
                           ang_v=ang_v, last_rpm=rpm)
 
 
-def reset(cfg: AviaryConfig, task, dtype=torch.float32, device=None):
-    """Initial (state, obs, info) of ONE environment, leaves (N, k).
+RESET_NOISE_FIELDS = ("reset_pos_noise", "reset_rpy_noise",
+                      "reset_vel_noise")
 
-    Deterministic like the reference (its reset() ignores the seed,
-    BaseAviary.py:243).  A task with reset noise is refused: randomized
-    resets are not ported yet.
-    """
-    if any(getattr(task, f, 0.0) for f in
-           ("reset_pos_noise", "reset_rpy_noise", "reset_vel_noise")):
-        raise NotImplementedError("randomized resets are not ported yet")
+
+def has_reset_noise(task) -> bool:
+    """Whether `task` randomizes its resets (RLTask's noise fields)."""
+    return any(getattr(task, f, 0.0) for f in RESET_NOISE_FIELDS)
+
+
+def reset_draws(generator: torch.Generator, shape: tuple,
+                device=None) -> torch.Tensor:
+    """`shape` + (9,) float32 uniforms in [-1, 1) for `randomize_reset`
+    (position in columns 0:3, attitude 3:6, velocity 6:9), drawn from the
+    explicit CPU `generator` and copied to `device` in one copy.  The same
+    generator state gives the same numbers on every device."""
+    u = torch.rand(tuple(shape) + (9,), generator=generator) * 2.0 - 1.0
+    device = resolve_device(device)
+    if device.type == "cuda":
+        return u.pin_memory().to(device, non_blocking=True)
+    return u.to(device)
+
+
+def initial_state(cfg: AviaryConfig, task, dtype=torch.float32, device=None,
+                  batch_shape: tuple = ()) -> EnvState:
+    """The deterministic reset state (reference BaseAviary.py:194-243),
+    leaves `batch_shape` + (N, k)."""
     device = resolve_device(device)
     n = cfg.num_drones
-    xyz = cfg.default_init_xyzs(dtype, device)
-    quat = quat_ops.rpy_to_quat(cfg.default_init_rpys(dtype, device))
+    batch_shape = tuple(batch_shape)
     buf_size, act_dim = task.action_buffer_shape(cfg)
-    zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
-    state = EnvState(
-        pos=xyz,
-        quat=quat,
+    zeros = lambda *shape: torch.zeros(batch_shape + shape, dtype=dtype,
+                                       device=device)
+    tile = lambda x: x.expand(batch_shape + x.shape).contiguous()
+    return EnvState(
+        pos=tile(cfg.default_init_xyzs(dtype, device)),
+        quat=tile(quat_ops.rpy_to_quat(cfg.default_init_rpys(dtype,
+                                                             device))),
         vel=zeros(n, 3),
         rpy_rates=zeros(n, 3),
         ang_v=zeros(n, 3),
         last_rpm=zeros(n, 4),
         action_buffer=zeros(n, buf_size, act_dim),
-        ctrl_state=dsl_pid.init_state((n,), dtype, device),
-        step_counter=torch.zeros((), dtype=torch.int32, device=device),
+        ctrl_state=dsl_pid.init_state(batch_shape + (n,), dtype, device),
+        step_counter=torch.zeros(batch_shape, dtype=torch.int32,
+                                 device=device),
     )
+
+
+def reset(cfg: AviaryConfig, task, dtype=torch.float32, device=None,
+          generator: torch.Generator | None = None, batch_shape: tuple = ()):
+    """Initial (state, obs, info), leaves `batch_shape` + (N, k) (one env
+    by default).
+
+    Deterministic like the reference (its reset() ignores the seed,
+    BaseAviary.py:243) unless the task has reset noise (RLTask's noise
+    fields, a superset feature): then `task.randomize_reset` moves each
+    drone by uniforms drawn from the CPU `generator` (`reset_draws`);
+    `generator=None` means one seeded with 0, as the JAX package's
+    `PRNGKey(0)` (its `core.py:248-249`).  Torch and JAX draw different
+    numbers from a seed.
+    """
+    device = resolve_device(device)
+    state = initial_state(cfg, task, dtype, device, batch_shape)
+    if has_reset_noise(task):
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        draws = reset_draws(generator, state.pos.shape[:-1], device)
+        state = task.randomize_reset(cfg, state, draws.to(dtype))
     return state, task.compute_obs(cfg, state), {}
 
 
-def step(cfg: AviaryConfig, task, state: EnvState, action: torch.Tensor):
+def step(cfg: AviaryConfig, task, state: EnvState, action: torch.Tensor,
+         rpm_override: torch.Tensor | None = None):
     """One control step: (state, obs, reward, terminated, truncated, info).
 
     Control-flow parity with reference BaseAviary.step (:259-383).
+
+    `rpm_override` (..., N, 4), when given, is applied as the rpm of every
+    substep as it is: the task's action preprocessing is bypassed, so the
+    action buffer is not pushed and the embedded PID does not tick (the
+    reference's GUI-slider path, `USE_GUI_RPM`, BaseAviary.py:324-341,
+    skips `_preprocessAction`).  `action` is then ignored.
     """
-    action = torch.as_tensor(action, dtype=state.pos.dtype,
-                             device=state.pos.device)
-    rpm, state = task.preprocess_action(cfg, state, action)
+    if rpm_override is not None:
+        rpm = torch.as_tensor(rpm_override, dtype=state.pos.dtype,
+                              device=state.pos.device)
+    else:
+        action = torch.as_tensor(action, dtype=state.pos.dtype,
+                                 device=state.pos.device)
+        rpm, state = task.preprocess_action(cfg, state, action)
     for _ in range(cfg.steps_per_ctrl):
         state = _apply_physics_substep(cfg, state, rpm)
     # Hooks see the PRE-increment step counter: the reference advances
@@ -289,17 +343,30 @@ def step(cfg: AviaryConfig, task, state: EnvState, action: torch.Tensor):
 
 
 def step_autoreset(cfg: AviaryConfig, task, state: EnvState,
-                   action: torch.Tensor):
+                   action: torch.Tensor,
+                   generator: torch.Generator | None = None):
     """step() + masked auto-reset on done, for batched RL rollouts.
 
     Done envs return the terminal reward/flags but the carried state is
     re-initialized, and the post-reset obs is returned (Gymnasium VecEnv
     convention).  Leading batch dims of `state` select per env.
+
+    A task with reset noise re-randomizes: every call draws a reset for
+    every env from the CPU `generator` and keeps it where an env is done,
+    so `done` is never read back (the JAX package advances every env's key
+    either way, its `core.py:332-333`).  Such a task needs the generator:
+    None raises.
     """
+    noisy = has_reset_noise(task)
+    if noisy and generator is None:
+        raise ValueError("a task with reset noise re-randomizes its auto-"
+                         "resets from a generator: pass `generator`")
     next_state, obs, reward, term, trunc, info = step(cfg, task, state, action)
     done = torch.logical_or(term, trunc)               # (...,)
     init_state, init_obs, _ = reset(cfg, task, dtype=state.pos.dtype,
-                                    device=state.pos.device)
+                                    device=state.pos.device,
+                                    generator=generator,
+                                    batch_shape=done.shape if noisy else ())
 
     def pick(i, nxt):
         d = done.reshape(done.shape + (1,) * (nxt.dim() - done.dim()))

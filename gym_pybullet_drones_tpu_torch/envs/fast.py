@@ -14,7 +14,9 @@ configuration used by benchmarks and large-scale training.  Two entry points:
   (action mapping or PID setpoints, obs, reward, termination, auto-reset)
   is tensor code on the same flat leaves via the tasks' `_map_to_rpm` /
   `_pid_targets` / `flat_post` hooks.  Deterministic tasks auto-reset to a
-  CONSTANT state, tiled once to the batch.
+  CONSTANT state, tiled once to the batch; a task with reset noise
+  re-randomizes each done env from that control step's draws
+  (`ResetNoise`).
 - `make_fused_rollout`: the carry is one opaque (RC, B) row block and the
   whole control step is ONE kernel launch (`ops/kernel_fused.py`).
 
@@ -38,14 +40,40 @@ from gym_pybullet_drones_tpu_torch.utils.device import resolve_device
 from gym_pybullet_drones_tpu_torch.utils.enums import (
     ObservationType, Physics)
 
-_NOISE_FIELDS = ("reset_pos_noise", "reset_rpy_noise", "reset_vel_noise")
+
+class ResetNoise:
+    """The reset noise of a batch of `shape` (..., N) drones, a pure
+    function of (seed, draw index): draw 0 is the reset's, draw t + 1 the
+    auto-reset draw of control step t.  Uniforms in [-1, 1)
+    (`core.reset_draws`) come from one CPU `torch.Generator` seeded with
+    `seed`, BLOCK draws at a time, each block copied to `device` in one
+    copy; so one seed gives the same draws on the CPU and on the card.  A
+    given env's draws depend on the batch's layout, where the JAX
+    package's per-env keys do not."""
+
+    BLOCK = 64
+
+    def __init__(self, seed: int, shape: tuple, device):
+        self.generator = torch.Generator().manual_seed(int(seed))
+        self.shape, self.device = tuple(shape), device
+        self.block, self.index = None, 0
+
+    def next(self) -> torch.Tensor:
+        """The next draw, `shape` + (9,) on the device."""
+        k = self.index % self.BLOCK
+        if k == 0:
+            self.block = core.reset_draws(
+                self.generator, (self.BLOCK,) + self.shape, self.device)
+        self.index += 1
+        return self.block[k]
 
 
 def _flat_reset(cfg, task, num_envs: int, device):
-    """One env's reset tiled to the flat (B*N, k) carry, and its obs
-    (B, N, D).  Computed once per call: deterministic resets are a
+    """The deterministic reset tiled to the flat (B*N, k) carry, and its
+    obs (B, N, D).  Computed once per call: deterministic resets are a
     constant."""
-    s1, obs1, _ = core.reset(cfg, task, device=device)
+    s1 = core.initial_state(cfg, task, device=device)
+    obs1 = task.compute_obs(cfg, s1)
     tile = lambda x: x.repeat((num_envs,) + (1,) * (x.dim() - 1))
     s1 = s1._replace(
         action_buffer=s1.action_buffer.flatten(1),         # (N, BUF*A)
@@ -68,13 +96,19 @@ def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
     PID tick in-kernel for PID-family actions, for any
     `cfg.solver_iterations`.  (float64 parity runs use `core.step`.)
 
+    A task with reset noise: reset_fn(seed) starts a `ResetNoise` stream
+    from `seed` and randomizes the reset from its first draw; every
+    control step then takes the next draw, randomizes the reset of every
+    env with it and keeps that where an env is done (no host sync on
+    `done`).  The stream lives in this closure (an EnvState carries no
+    generator; `step_fn.reset_noise()` returns it, None for a
+    deterministic task); before the first reset_fn it is seed 0's.
+
     obs_layout: "drone" -> obs (B, N, D) (reference per-drone layout);
     "flat" -> obs (B, N*D).
     """
     if obs_layout not in ("drone", "flat"):
         raise ValueError(f"unknown obs_layout {obs_layout!r}")
-    if any(getattr(task, f, 0.0) for f in _NOISE_FIELDS):
-        raise NotImplementedError("randomized resets are not ported yet")
     device = resolve_device(device)
     n = cfg.num_drones
     bn = num_envs * n
@@ -90,6 +124,8 @@ def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
 
     init_flat, init_obs = _flat_reset(cfg, task, num_envs, device)
     init_obs_flat = init_obs.reshape(bn, -1)               # (B*N, D)
+    noisy = core.has_reset_noise(task)
+    noise = ResetNoise(0, (bn,), device) if noisy else None
 
     def _finalize_obs(obs):
         """Flat-hook obs (B*N, D) -> the requested output layout."""
@@ -97,9 +133,21 @@ def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
             return obs.reshape(num_envs, n, obs.shape[1])
         return obs.reshape(num_envs, n * obs.shape[1])
 
+    def _reset_state():
+        """The flat reset state and its obs (B*N, D): the constant, or for
+        a task with reset noise the constant moved by the next draw."""
+        if not noisy:
+            return init_flat, init_obs_flat
+        flat = task.randomize_reset(cfg, init_flat, noise.next())
+        return flat, task.flat_post(cfg, flat, num_envs, n)[0]
+
     def reset_fn(seed: int = 0):
-        # deterministic: the seed is accepted for API parity and unused
-        return init_flat, _finalize_obs(init_obs_flat)
+        # deterministic tasks: the seed is accepted for API parity, unused
+        nonlocal noise
+        if noisy:
+            noise = ResetNoise(seed, (bn,), device)
+        flat, obs = _reset_state()
+        return flat, _finalize_obs(obs)
 
     pyb = cfg.physics != Physics.DYN
 
@@ -173,10 +221,12 @@ def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
             d = done_bn if nxt.dim() > 1 else done
             return torch.where(d.reshape((-1,) + (1,) * (nxt.dim() - 1)),
                                i, nxt)
-        flat = core.map_leaves(pick, init_flat, flat)
-        obs = torch.where(done_bn[:, None], init_obs_flat, obs)
+        reset_flat, reset_obs = _reset_state()
+        flat = core.map_leaves(pick, reset_flat, flat)
+        obs = torch.where(done_bn[:, None], reset_obs, obs)
         return flat, _finalize_obs(obs), reward, term, trunc
 
+    step_fn.reset_noise = lambda: noise
     return reset_fn, step_fn
 
 
@@ -195,7 +245,8 @@ def fused_spec(cfg: core.AviaryConfig, task) -> kernel_fused.FusedSpec:
         raise ValueError("fused rollout requires KIN observations")
     if getattr(task, "row_post", None) is None:
         raise ValueError("task has no row_post hook")
-    if any(getattr(task, f, 0.0) for f in _NOISE_FIELDS):
+    if core.has_reset_noise(task):
+        # as in the JAX package (its fast.py:450-452)
         raise ValueError("fused rollout requires deterministic resets")
     s1, _, _ = core.reset(cfg, task, device="cpu")
     flat16_1 = torch.cat(

@@ -167,11 +167,28 @@ class RLTask:
 
     act: ActionType = ActionType.RPM
     obs: ObservationType = ObservationType.KIN
-    # uniform reset noise on position [m], attitude [rad], velocity [m/s];
-    # carried for the eligibility checks, non-zero values are not ported yet
+    # Superset feature (reference resets are always deterministic): uniform
+    # reset noise on position [m], attitude [rad], velocity [m/s]
     reset_pos_noise: float = 0.0
     reset_rpy_noise: float = 0.0
     reset_vel_noise: float = 0.0
+
+    def randomize_reset(self, cfg, state: EnvState, draws: torch.Tensor):
+        """Move a reset state by the noise: `draws` (..., N, 9) uniforms in
+        [-1, 1) (`core.reset_draws`), position in columns 0:3, attitude
+        3:6, velocity 6:9; leaves (..., N, k) or flat (B*N, k).  The JAX
+        package's arithmetic (its `tasks.py:148-156`): the position plus
+        noise, the attitude through its Euler angles plus noise, the
+        velocity plus noise.  A task without noise returns `state`."""
+        if not (self.reset_pos_noise or self.reset_rpy_noise
+                or self.reset_vel_noise):
+            return state
+        pos = state.pos + self.reset_pos_noise * draws[..., 0:3]
+        rpy = quat_ops.quat_to_rpy(state.quat) \
+            + self.reset_rpy_noise * draws[..., 3:6]
+        vel = state.vel + self.reset_vel_noise * draws[..., 6:9]
+        return state._replace(pos=pos, quat=quat_ops.rpy_to_quat(rpy),
+                              vel=vel)
 
     def action_dim(self, cfg) -> int:
         if self.act in (ActionType.RPM, ActionType.VEL):

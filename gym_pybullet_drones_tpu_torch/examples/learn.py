@@ -14,12 +14,12 @@ kernel on the card, one launch per control step.  An evaluation
 training stops at the target.  `best_model.pt` and `final_model.pt` are
 torch `state_dict`s of the ActorCritic.
 
-The replay differs from the JAX script's: that one replays in the gym class
-env `HoverAviary` and plots with `Logger`, neither of which is ported yet
-(ROADMAP.md queue 1, item 14).  Here one deterministic episode replays
-through the port's `make_batched_step(cfg, task, 1, autoreset=False)` and
-the accumulated reward is printed.  `--gui` and `--record_video` raise
-until then; `--colab` only chose how the plot is shown and has no effect.
+Then, as in the JAX script, the trained policy's deterministic action
+replays in the class env (`HoverAviary` / `MultiHoverAviary`, on the same
+device) for EPISODE_LEN_SEC + 2 seconds, resetting where an episode ends,
+with `--gui` and `--record_video` as there; the states are logged and,
+for KIN observations, plotted (`plot`; matplotlib).  `--colab` only chose
+how the plot is shown and has no effect.
 """
 import argparse
 import os
@@ -31,11 +31,13 @@ import torch
 
 from gym_pybullet_drones_tpu_torch import params as P
 from gym_pybullet_drones_tpu_torch.envs import (
-    AviaryConfig, HoverTask, MultiHoverTask, make_batched_step)
+    AviaryConfig, HoverAviary, HoverTask, MultiHoverAviary, MultiHoverTask)
 from gym_pybullet_drones_tpu_torch.rl import PPOConfig, make_train
 from gym_pybullet_drones_tpu_torch.utils.device import resolve_device
 from gym_pybullet_drones_tpu_torch.utils.enums import (
     ActionType, ObservationType, Physics)
+from gym_pybullet_drones_tpu_torch.utils.logger import Logger
+from gym_pybullet_drones_tpu_torch.utils.utils import str2bool, sync
 
 DEFAULT_GUI = False
 DEFAULT_RECORD_VIDEO = False
@@ -47,26 +49,10 @@ DEFAULT_AGENTS = 2
 DEFAULT_MA = False
 
 
-def str2bool(val):
-    """'yes'/'true'/'1' or 'no'/'false'/'0' (any case) -> bool."""
-    if isinstance(val, bool):
-        return val
-    if val.lower() in ("yes", "true", "t", "y", "1"):
-        return True
-    if val.lower() in ("no", "false", "f", "n", "0"):
-        return False
-    raise argparse.ArgumentTypeError("[ERROR] in str2bool(), a Boolean "
-                                     "value is expected")
-
-
 def run(multiagent=DEFAULT_MA, output_folder=DEFAULT_OUTPUT_FOLDER,
-        gui=DEFAULT_GUI, colab=DEFAULT_COLAB,
+        gui=DEFAULT_GUI, plot=True, colab=DEFAULT_COLAB,
         record_video=DEFAULT_RECORD_VIDEO, local=True, obs=DEFAULT_OBS,
         act=DEFAULT_ACT, num_envs=64, seed=0, device=None):
-    if gui or record_video:
-        raise NotImplementedError(
-            "the GUI and video replay need the gym class envs: ROADMAP.md "
-            "queue 1, item 14")
     device = resolve_device(device)
     filename = os.path.join(
         output_folder,
@@ -118,21 +104,36 @@ def run(multiagent=DEFAULT_MA, output_folder=DEFAULT_OUTPUT_FOLDER,
                os.path.join(filename, "final_model.pt"))
     print(f"[RESULT] best eval return {best_eval:.2f} (target {target})")
 
-    # ---- replay one deterministic episode through the batched step ----
-    reset_fn, step_fn = make_batched_step(env_cfg, task, 1, autoreset=False,
-                                          obs_layout="flat", device=device)
-    state, obs_arr = reset_fn()
+    # ---- replay the trained policy in the class-based env ----
+    env_cls = MultiHoverAviary if multiagent else HoverAviary
+    test_env = env_cls(gui=gui, obs=ObservationType(obs),
+                       act=ActionType(act), record=record_video,
+                       device=device)
+    logger = Logger(logging_freq_hz=test_env.CTRL_FREQ,
+                    num_drones=num_drones, output_folder=output_folder,
+                    colab=colab)
+    obs_arr, info = test_env.reset(seed=42)
+    start = time.time()
     total_r = 0.0
-    episode_steps = int(task.episode_len_sec * env_cfg.ctrl_freq) + 2
     with torch.no_grad():
-        for _ in range(episode_steps):
-            mean = ts.network(obs_arr)[0]
-            state, obs_arr, reward, terminated, truncated = step_fn(
-                state, mean.reshape(1, num_drones, -1))
-            total_r += float(reward[0])
-            if bool(terminated[0] | truncated[0]):
-                break
+        for i in range(int(test_env.EPISODE_LEN_SEC + 2)
+                       * test_env.CTRL_FREQ):
+            flat = torch.as_tensor(obs_arr.reshape(1, -1), device=device)
+            action = ts.network(flat)[0].reshape(num_drones, -1)
+            obs_arr, reward, terminated, truncated, _ = test_env.step(action)
+            total_r += reward
+            for d in range(num_drones):
+                logger.log(drone=d, timestamp=i / test_env.CTRL_FREQ,
+                           state=test_env.getDroneStateVector(d))
+            if gui:
+                test_env.render()
+                sync(i, start, test_env.CTRL_TIMESTEP)
+            if terminated or truncated:
+                obs_arr, info = test_env.reset(seed=42)
+    test_env.close()
     print(f"[RESULT] replay accumulated reward {total_r:.2f}")
+    if plot and ObservationType(obs) == ObservationType.KIN:
+        logger.plot()
     return best_eval
 
 
@@ -146,6 +147,9 @@ if __name__ == "__main__":
                         type=str2bool, metavar="")
     parser.add_argument("--output_folder", default=DEFAULT_OUTPUT_FOLDER,
                         type=str, metavar="")
+    parser.add_argument("--plot", default=True, type=str2bool,
+                        help="plot the replay's states (needs matplotlib)",
+                        metavar="")
     parser.add_argument("--colab", default=DEFAULT_COLAB, type=bool,
                         metavar="")
     parser.add_argument("--local", default=True, type=str2bool,

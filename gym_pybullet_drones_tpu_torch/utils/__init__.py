@@ -1,4 +1,5 @@
-"""Utilities: enums and device resolution."""
+"""Utilities: enums, device resolution, and the host-side helpers of the
+examples and the class adapters (logger, viewer, video, pacing)."""
 from gym_pybullet_drones_tpu_torch.utils.enums import (  # noqa: F401
     ActionType,
     DroneModel,

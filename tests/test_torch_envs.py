@@ -119,8 +119,9 @@ def test_step_autoreset_batched_matches_jax_vmap():
 def test_pyb_matches_jax_and_rgb_and_noise_raise():
     """PYB_DW and the routing configuration's default physics (PYB) step as
     in the JAX package; RGB observations give its camera image
-    (tests/test_torch_rgb_slice.py holds them in full); randomized resets,
-    which the port does not have, raise."""
+    (tests/test_torch_rgb_slice.py holds them in full); a randomized
+    auto-reset without the generator to draw it from raises
+    (tests/test_torch_reset_noise.py holds randomized resets)."""
     import dataclasses
     from gym_pybullet_drones_tpu.envs import (
         make_routing_config as j_routing_config)
@@ -158,7 +159,10 @@ def test_pyb_matches_jax_and_rgb_and_noise_raise():
     trgb = HoverTask(obs=TE.ObservationType.RGB).compute_obs(tcfg, ts)
     assert trgb.shape == (1, 48, 64, 4) == jrgb.shape
     assert_obs_close(trgb, jrgb)
-    with pytest.raises(NotImplementedError):
-        tcore.reset(tcfg, HoverTask(reset_vel_noise=0.1), device="cpu")
+    noisy = HoverTask(reset_vel_noise=0.1)
+    ns, _, _ = tcore.reset(tcfg, noisy, device="cpu")
+    assert 0 < float(ns.vel.abs().max()) <= 0.1
+    with pytest.raises(ValueError, match="generator"):
+        tcore.step_autoreset(tcfg, noisy, ns, torch.zeros((1, 4)))
     with pytest.raises(ValueError):
         dataclasses.replace(tcfg, ctrl_freq=50)

@@ -54,6 +54,18 @@ def test_scan_sees_the_port():
                  "gym_pybullet_drones_tpu_torch/examples/learn.py",
                  "gym_pybullet_drones_tpu_torch/examples/"
                  "train_to_threshold.py",
+                 "gym_pybullet_drones_tpu_torch/envs/core.py",
+                 "gym_pybullet_drones_tpu_torch/envs/spaces.py",
+                 "gym_pybullet_drones_tpu_torch/envs/gym_adapter.py",
+                 "gym_pybullet_drones_tpu_torch/utils/utils.py",
+                 "gym_pybullet_drones_tpu_torch/utils/logger.py",
+                 "gym_pybullet_drones_tpu_torch/utils/viewer.py",
+                 "gym_pybullet_drones_tpu_torch/utils/video.py",
+                 "gym_pybullet_drones_tpu_torch/examples/pid.py",
+                 "gym_pybullet_drones_tpu_torch/examples/pid_velocity.py",
+                 "gym_pybullet_drones_tpu_torch/examples/downwash.py",
+                 "gym_pybullet_drones_tpu_torch/examples/routing.py",
+                 "gym_pybullet_drones_tpu_torch/examples/swarm.py",
                  "gym_pybullet_drones_tpu_torch/_build.py", "chip_smoke.py"):
         assert must in names
     assert FORBIDDEN.search("import jax.numpy as jnp")
