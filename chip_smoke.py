@@ -35,7 +35,18 @@ each aviary on the card against the CPU, the drones' cameras from the
 render kernel bit for bit its plain version, `rpm_override` against
 `CtrlAviary`, and the control steps a second of each device; and the
 examples: `examples/pid.py` cut to 2 s of flight, `examples/swarm.py` at
-its full width (4096 fleets of 4, 8 s).
+its full width (4096 fleets of 4, 8 s).  Then the routing learning run
+(`examples/train_to_threshold.py --routing`'s configuration: 128 envs of
+3 drones on PYB physics, the 128x128 MLP, 10 epochs) cut to 4 updates,
+each followed by the run's all-arrivals evaluation (64 envs x 480 control
+steps through `env_ctrl_step`), whose envs must end bit for bit alike, the
+evaluator on the card against the CPU re-anchored, and both kernels at the
+run's shapes against their plain versions; and the host-side loops:
+`CFAviary` with each firmware controller for 480 ticks on the card and on
+the CPU, `examples/cf.py` cut to 5% of its flight, `BetaAviary` on the
+card against loopback listeners on 127.0.0.2 (Python sockets) and
+127.0.0.3 (the g++-built native bridge), `examples/debug.py`'s probes,
+and a checkpoint of the routing trainer saved, restored and resumed.
 Any failed phase raises and the process exits non-zero.  It imports only
 torch, numpy and the port.
 
@@ -46,14 +57,18 @@ Output: one JSON object per line, in order `env`, `build`,
 `population_update_parity`, `ppo_population8x1024`,
 `population_kernel_checks`, `ppo_bf16_parity`,
 `render_checks`, `hover256_rgb`, `ppo_rgb_update_parity`, `ppo_rgb512`,
-`reset_noise`, `gym_adapter`, `examples`, `timing`, then the `{"kernels": [...]}` summary (one entry per kernel and
+`reset_noise`, `gym_adapter`, `examples`, `routing_learn`, `host_loops`,
+`timing`, then the `{"kernels": [...]}` summary (one entry per kernel and
 main-path shape), then the card's name and power limit as nvidia-smi prints them,
 then `{"ok": true, "device": {...}}` as the last line.
 """
+import copy
 import dataclasses
 import json
 import re
 import shutil
+import socket
+import struct
 import subprocess
 import sys
 import time
@@ -81,6 +96,12 @@ PID_ROWS_TOL = (2e-5, 3e-4)
 # keeps ATOL, RTOL.
 PYB_ANGV_TOL = (5e-4, 3e-4)
 PYB_VEL_TOL = (1e-4, 1e-4)
+# The host-side loops (CFAviary, debug.py's probes) run eager float32 on the
+# card and on the CPU, free-running over about 480 ticks: the position within
+# 1e-5 m and the probes' state within 1e-5, some 300x and 16x what the card
+# showed (3.0e-8 m and 6.0e-7, NVIDIA H100 80GB HBM3, 700 W).
+CF_POS_DRIFT = 1e-5
+DEBUG_DRIFT = 1e-5
 # Downwash switches on at dz > 0 with a magnitude ~ 1/dz^2 (10^3 m/s of
 # velocity per control step at dz = 1 cm on a Crazyflie): two drones of an
 # env within this height of each other [m] before the step are at a tie,
@@ -446,7 +467,7 @@ def main():
     from gym_pybullet_drones_tpu_torch.envs import (
         AviaryConfig, HoverTask, MultiHoverTask, core, fused_spec,
         make_batched_step, make_fused_rollout, make_routing_config)
-    from gym_pybullet_drones_tpu_torch.envs.core import map_leaves
+    from gym_pybullet_drones_tpu_torch.envs.core import leaves, map_leaves
     from gym_pybullet_drones_tpu_torch.envs.tasks import TASK_ROUTING
     from gym_pybullet_drones_tpu_torch.ops import (
         kernel_dyn, kernel_env, kernel_fused, kernel_math, kernel_pid,
@@ -459,7 +480,8 @@ def main():
         DRAG_MODES, DW_MODES, GND_MODES)
     from gym_pybullet_drones_tpu_torch.ops.kernel_fused import PID_FAMILY
     from gym_pybullet_drones_tpu_torch.rl import (
-        Draws, PPOConfig, make_train, make_train_population, member_state)
+        Draws, PPOConfig, make_arrival_rate, make_train,
+        make_train_population, member_state)
     from gym_pybullet_drones_tpu_torch.utils.enums import (
         ActionType, ObservationType, Physics)
 
@@ -2609,6 +2631,330 @@ def main():
                   "step before it, a readback of the reward sum inside; "
                   "the CPU's fleet is the plain versions' reference, "
                   "free-running, compared by which drones arrive"})
+    # ---- the routing learning run (examples/train_to_threshold.py
+    # --routing): the committed configuration at full width, cut to a few
+    # updates, each followed by the run's evaluation (64 envs x 480
+    # control steps under the policy mean) ----
+    t_route = time.perf_counter()
+    rrcfg, rrtask = make_routing_config(num_drones=3, spacing=0.4)  # PYB
+    rr_updates, rr_eval_envs = 4, 64
+    rr_horizon = int(rrtask.episode_len_sec * rrcfg.ctrl_freq)     # 480
+    rppo = PPOConfig(num_envs=128, rollout_steps=64, num_minibatches=4,
+                     update_epochs=10, lr=3e-4, anneal_lr=True, gamma=0.99,
+                     log_std_init=-1.0, hidden=(128, 128),
+                     total_timesteps=400 * 128 * 64)
+    rinit, rupdate, _, _ = make_train(rrcfg, rrtask, rppo, device=dev)
+    if rupdate.env_path != "fused":
+        raise AssertionError(f"routing_learn on {rupdate.env_path}")
+    arrival_rate = make_arrival_rate(rrcfg, rrtask, rr_eval_envs,
+                                     rr_horizon, dev)
+    rts = rinit(torch.Generator(dev).manual_seed(SEED))
+    reset_counts()
+    rr_runs = []
+    for _ in range(rr_updates):
+        rts, (run,) = timed_updates(rupdate, rts, 1, 128, 64,
+                                    "routing_learn", k2_per_update=64)
+        before = kernel_env.launches
+        t0 = time.perf_counter()
+        rate, ever, rstate = arrival_rate(rts.network)
+        rate = float(rate)
+        run["eval_ms"] = (time.perf_counter() - t0) * 1e3
+        run["all_arrivals_rate"] = rate
+        if kernel_env.launches - before != rr_horizon:
+            raise AssertionError("routing_learn: K5 launches per evaluation")
+        # the reset is deterministic and so is the policy mean: the 64 envs
+        # fly one episode, bit for bit, and the rate is all or nothing
+        for k, leaf in enumerate(leaves(rstate)):
+            per_env = leaf.reshape(rr_eval_envs, -1)
+            if not torch.equal(per_env, per_env[:1].expand_as(per_env)):
+                raise AssertionError(f"routing_learn: the evaluation's envs "
+                                     f"differ (leaf {k})")
+        if rate not in (0.0, 1.0) or bool(ever.all()) != (rate == 1.0):
+            raise AssertionError(f"routing_learn: rate {rate}")
+        rr_runs.append(run)
+    torch.cuda.synchronize()
+    rr_counts = {k: v for k, v in launch_counts().items() if v}
+    if rr_counts != {"fused_env_step": 64 * rr_updates,
+                     "env_ctrl_step": rr_horizon * rr_updates}:
+        raise AssertionError(f"routing_learn: launches {rr_counts}")
+    rr_learn_counts = {"fused_env_step": rr_counts["fused_env_step"]}
+    rr_eval_counts = {"env_ctrl_step": rr_counts["env_ctrl_step"]}
+
+    # the evaluator on the card against the CPU from the same weights,
+    # re-anchored on the CPU's state at each step (two free-running
+    # embedded-PID paths drift apart), over a cut horizon: the same action
+    # (the CPU policy's mean) into both
+    cpu_net = copy.deepcopy(rts.network).cpu()
+    c_reset, c_step = make_batched_step(rrcfg, rrtask, rr_eval_envs,
+                                        autoreset=False, obs_layout="flat",
+                                        device="cpu")
+    g_reset, g_step = make_batched_step(rrcfg, rrtask, rr_eval_envs,
+                                        autoreset=False, obs_layout="flat",
+                                        device=dev)
+    rspec = fused_spec(rrcfg, rrtask)
+    r_obs = rrtask.obs_dim(rrcfg)
+    otol = [torch.full((3 * r_obs,), t) for t in PID_OBS_TOL]
+    for d in range(3):
+        otol[0][d * r_obs + 9:d * r_obs + 12] = PYB_ANGV_TOL[0]
+        otol[1][d * r_obs + 9:d * r_obs + 12] = PYB_ANGV_TOL[1]
+    cs, co = c_reset()
+    gs, go = g_reset()
+    eval_err = check_close("routing eval reset obs", go.cpu(), co, tol=otol)
+    eval_nn_ties = eval_flag_ties = 0
+    for t in range(16):
+        with torch.no_grad():
+            a = cpu_net(co)[0].reshape(rr_eval_envs, 3, -1)
+        prev, gs = cs, on(dev, cs)
+        cs, co, cr, cte, ctr = c_step(cs, a)
+        gs, go, gr, gte, gtr = g_step(gs, a.to(dev))
+        go, gr, gte, gtr = go.cpu(), gr.cpu(), gte.cpu(), gtr.cpu()
+        differ = (gte != cte) | (gtr != ctr)
+        if differ.any():
+            # no auto-reset: the CPU's next state is the stepped state
+            margin = flag_margin(rspec, stepped_rows(cs, 3),
+                                 prev.step_counter.float())
+            if (differ & (margin > FLAG_MARGIN)).any():
+                raise AssertionError(f"routing eval: flags differ away from "
+                                     f"a tie at step {t}")
+            eval_flag_ties += int(differ.sum())
+        # a nearest neighbour decided by rounding (the drones start on a
+        # line at equal spacing): take the CPU's
+        beyond = (go - co).abs() > otol[0] + otol[1] * co.abs()
+        tie = nn_tie(cs.pos.reshape(rr_eval_envs, 3, 3))[:, None] & beyond
+        tie[:, [c for c in range(3 * r_obs) if c % r_obs < r_obs - 3]] = \
+            False
+        eval_nn_ties += int(tie.any(dim=1).sum())
+        go = torch.where(tie, co, go)
+        keep = ~differ
+        eval_err = max(eval_err, check_close(
+            f"routing eval obs t={t}", go[keep], co[keep], tol=otol),
+            check_close(f"routing eval reward t={t}", gr[keep][None],
+                        cr[keep][None], tol=PID_OBS_TOL))
+    # the two kernels at the run's shapes, against their plain versions:
+    # K2 (d) with the PID family and the routing hooks at the trainer's
+    # 128 envs, K5 with the PID preamble at the evaluator's 64
+    rng = np.random.default_rng(SEED + 11)
+    fused_case("routing3x128_pyb_learn", rrcfg, rrtask, 128)
+    env_case(Physics.PYB, 3, True, True, P.CF2X, rr_eval_envs,
+             timed="routing3x64_pyb_eval", obstacles=())
+    rr_kernel_checks = checks[-2:]
+    emit({"phase": "routing_learn", "gpu": card,
+          "config": {"num_drones": 3, "spacing": 0.4,
+                     "physics": rrcfg.physics.value, "num_envs": 128,
+                     "rollout_steps": 64, "epochs": 10, "minibatches": 4,
+                     "hidden": [128, 128], "lr": 3e-4, "anneal": True,
+                     "log_std_init": -1.0, "eval_envs": rr_eval_envs,
+                     "eval_steps": rr_horizon},
+          "updates": rr_runs, "launches": rr_counts,
+          "eval_envs_bitwise_equal": True,
+          "eval_card_vs_cpu": {"steps": 16, "anchored": True,
+                               "max_abs_err": eval_err,
+                               "flag_ties": eval_flag_ties,
+                               "nearest_neighbour_ties": eval_nn_ties},
+          "kernel_checks": rr_kernel_checks,
+          "seconds": time.perf_counter() - t_route,
+          "note": "host clock; rollout_ms ends at a synchronize after the "
+                  "GAE, update_ms at a readback of the metrics, eval_ms at "
+                  "the readback of the rate"})
+
+    # ---- the host-side loops: CFAviary with the firmware, cf.py,
+    # BetaAviary over loopback UDP (both bridges), debug.py's probes, a
+    # checkpoint on the card ----
+    t_host = time.perf_counter()
+    from gym_pybullet_drones_tpu_torch import native
+    from gym_pybullet_drones_tpu_torch.envs.beta_aviary import (
+        BASE_PORT_PWM, BASE_PORT_RC, BASE_PORT_STATE, BetaAviary)
+    from gym_pybullet_drones_tpu_torch.envs.cf_aviary import CFAviary
+    from gym_pybullet_drones_tpu_torch.examples import cf as cf_example
+    from gym_pybullet_drones_tpu_torch.examples import debug as debug_example
+    from gym_pybullet_drones_tpu_torch.utils.checkpoint import (
+        restore_checkpoint, save_checkpoint)
+    reset_counts()
+    cf_records = {}
+    for controller, fw_freq in (("mellinger", 500), ("pid", 1000),
+                                ("dsl", 1000)):
+        steps = 480 * 25 // fw_freq                # about 480 ticks each
+        flights, rates, ticks = {}, {}, {}
+        for where in ("cpu", dev):
+            env = type("CF", (CFAviary,), {"CONTROLLER": controller})(
+                initial_xyzs=np.array([[0.0, 0.0, 0.1]]), pyb_freq=fw_freq,
+                ctrl_freq=25, device=where)
+            obs_log = []
+            t0 = time.perf_counter()
+            for i in range(steps):
+                if i == 1:
+                    env.sendTakeoffCmd(0.5, 0.4)
+                if i == steps // 2:
+                    env.sendFullStateCmd([0.2, 0.1, 0.5], np.zeros(3),
+                                         np.zeros(3), 0.3, np.zeros(3),
+                                         i / 25)
+                obs_log.append(env.step(i)[0][0])
+            rates[str(where)] = env.tick / (time.perf_counter() - t0)
+            flights[str(where)] = np.stack(obs_log)
+            ticks[str(where)] = env.tick
+            if not np.isfinite(flights[str(where)]).all():
+                raise AssertionError(f"CFAviary {controller} on {where}: "
+                                     "non-finite obs")
+            env.close()
+        # the scheduling compares differences of Python floats, so a run's
+        # tick count is 480 give or take one, the same on both devices
+        if ticks["cpu"] != ticks[str(dev)] or abs(ticks["cpu"] - 480) > 1:
+            raise AssertionError(f"CFAviary {controller}: ticks {ticks}")
+        drift = np.abs(flights[str(dev)] - flights["cpu"])
+        # the card against the CPU, free-running, both float32: position
+        # within CF_POS_DRIFT, the state columns within the ang-vel rows'
+        # tolerance, the rpm columns within the PID paths' rpm tolerance
+        ref = np.abs(flights["cpu"])
+        within = lambda cols, tol: bool(
+            (drift[:, cols] <= tol[0] + tol[1] * ref[:, cols]).all())
+        if not (drift[:, 0:3].max() <= CF_POS_DRIFT
+                and within(slice(0, 16), PYB_ANGV_TOL)
+                and within(slice(16, 20), PID_RPM_TOL)):
+            raise AssertionError(
+                f"CFAviary {controller}: the card drifts from the CPU by "
+                f"{drift[:, 0:3].max()} m, {drift[:, 0:16].max()} in the "
+                f"state, {drift[:, 16:20].max()} rpm")
+        cf_records[controller] = {
+            "firmware_hz": fw_freq, "ticks": ticks["cpu"],
+            "control_steps": steps,
+            "ticks_per_s": rates,
+            "card_vs_cpu_max_pos_drift": float(drift[:, 0:3].max()),
+            "card_vs_cpu_max_state_drift": float(drift[:, 0:16].max()),
+            "card_vs_cpu_max_rpm_drift": float(drift[:, 16:20].max()),
+            "final_pos": flights[str(dev)][-1, 0:3].tolist()}
+    t0 = time.perf_counter()
+    cf_logger = cf_example.run(plot=False, duration_fraction=0.05,
+                               output_folder="build/chip_smoke/cf",
+                               device=dev)
+    cf_seconds = time.perf_counter() - t0
+    if cf_logger.states.shape != (1, 16, 26) \
+            or not np.isfinite(cf_logger.states).all():
+        raise AssertionError(f"cf.py: states {cf_logger.states.shape}")
+
+    def beta_loopback(ip, native_bridge, steps=80):
+        """A BetaAviary of one drone on the card (48 Hz physics and
+        control) against listener sockets on `ip`, answering with a fixed
+        PWM packet from t = 1.2 s: packets seen, and the rpm the reply
+        turns into."""
+        fdm, rc = (socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+                   for _ in range(2))
+        reply = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        env = None
+        try:
+            fdm.bind((ip, BASE_PORT_STATE))
+            rc.bind((ip, BASE_PORT_RC))
+            fdm.settimeout(2.0)
+            rc.settimeout(2.0)
+            env = BetaAviary(num_drones=1, pyb_freq=48, ctrl_freq=48,
+                             udp_ip=ip, use_native_bridge=native_bridge,
+                             device=dev)
+            seen, last_rc = 0, None
+            t0 = time.perf_counter()
+            for i in range(steps):
+                env.step(np.array([[12.0, 0.2, -0.1, 0.05]]), i)
+                struct.unpack("@dddddddddddddddddd", fdm.recv(1024))
+                last_rc = struct.unpack("@dHHHHHHHHHHHHHHHH", rc.recv(1024))
+                seen += 2
+                if i / 48 >= 1.2:
+                    reply.sendto(struct.pack("@ffff", 0.1, 0.2, 0.3, 0.4),
+                                 (ip, BASE_PORT_PWM))
+            rate = steps / (time.perf_counter() - t0)
+            rpm = env.state.last_rpm[0].cpu().numpy()
+        finally:
+            if env is not None:
+                env.close()
+            for s in (fdm, rc, reply):
+                s.close()
+        u = np.float32([0.3, 0.2, 0.4, 0.1])        # the [2, 1, 3, 0] remap
+        want = np.sqrt(P.CF2X.max_thrust / 4 / P.CF2X.kf * u)
+        if not np.allclose(rpm, want, rtol=1e-6) or last_rc[5] != 1500:
+            raise AssertionError(f"BetaAviary on {ip}: rpm {rpm}, want "
+                                 f"{want}; rc {last_rc}")
+        return {"ip": ip, "native_bridge": native_bridge, "steps": steps,
+                "packets_seen": seen, "rpm_from_fixed_pwm": rpm.tolist(),
+                "last_rc": list(last_rc[1:6]), "control_steps_per_s": rate}
+    t0 = time.perf_counter()
+    native.build("sitl_bridge")
+    gxx_seconds = time.perf_counter() - t0
+    beta_records = [beta_loopback("127.0.0.2", False),
+                    beta_loopback("127.0.0.3", True)]
+    t0 = time.perf_counter()
+    probes = {"card": debug_example.probes(dev),
+              "cpu": debug_example.probes("cpu")}
+    debug_seconds = time.perf_counter() - t0
+    debug_drift = {name: max(float((getattr(s, k).cpu()
+                                    - getattr(probes["cpu"][name], k))
+                                   .abs().max())
+                             for k in ("pos", "quat", "vel", "ang_v"))
+                   for name, s in probes["card"].items()}
+    if not float(probes["card"]["obstacle"].pos[0, 0]) < 0.5:
+        raise AssertionError("debug.py: the beam did not stop the drone")
+    if max(debug_drift.values()) > DEBUG_DRIFT:
+        raise AssertionError(f"debug.py: the card's probes drift from the "
+                             f"CPU's by {debug_drift}")
+    host_counts = {k: v for k, v in launch_counts().items() if v}
+    if host_counts:
+        raise AssertionError(f"host loops launched kernels: {host_counts}")
+    # a checkpoint of the routing trainer on the card, restored into a
+    # fresh learner; one more update from each
+    path = save_checkpoint("build/chip_smoke/ckpt", rts, step=rr_updates)
+    restored = restore_checkpoint(
+        path, rinit(torch.Generator(dev).manual_seed(SEED + 1)))
+    a1, m1 = rupdate(rts)
+    a2, m2 = rupdate(restored)
+    ckpt_diff = max(float((x - y).abs().max()) for x, y in zip(
+        list(a1.network.state_dict().values()) + leaves(a1.env_state)
+        + list(a1.opt_state.mu) + list(a1.opt_state.nu),
+        list(a2.network.state_dict().values()) + leaves(a2.env_state)
+        + list(a2.opt_state.mu) + list(a2.opt_state.nu)))
+    if ckpt_diff != 0.0 or any(float(m1[k]) != float(m2[k]) for k in m1):
+        raise AssertionError(f"checkpoint: the resumed update differs by "
+                             f"{ckpt_diff}")
+    # the same with a task with reset noise (the batched path, its stream
+    # in the checkpoint), an evaluation between the save and the resumes
+    ntask = HoverTask(act=ActionType.RPM, reset_pos_noise=0.2,
+                      reset_rpy_noise=0.1, episode_len_sec=0.2)
+    ninit, nupdate, nevaluate, _ = make_train(
+        AviaryConfig(P.CF2X, 1, Physics.DYN, 240, 30), ntask,
+        PPOConfig(num_envs=64, rollout_steps=8, num_minibatches=2,
+                  update_epochs=1), device=dev)
+    nts, _ = nupdate(ninit(torch.Generator(dev).manual_seed(SEED)))
+    npath = save_checkpoint("build/chip_smoke/ckpt_noise", nts, step=1)
+    nrestored = restore_checkpoint(
+        npath, ninit(torch.Generator(dev).manual_seed(SEED + 1)))
+    nevaluate(nts.network, num_steps=2)
+    b1, n1 = nupdate(nts)
+    b2, n2 = nupdate(nrestored)
+    noise_ckpt_diff = max(float((x - y).abs().max()) for x, y in zip(
+        list(b1.network.state_dict().values()) + leaves(b1.env_state)
+        + [b1.last_obs, b1.reset_noise.block],
+        list(b2.network.state_dict().values()) + leaves(b2.env_state)
+        + [b2.last_obs, b2.reset_noise.block]))
+    if (noise_ckpt_diff != 0.0 or b1.reset_noise.index < 2
+            or b1.reset_noise.index != b2.reset_noise.index
+            or any(float(n1[k]) != float(n2[k]) for k in n1)):
+        raise AssertionError(f"checkpoint with reset noise: the resumed "
+                             f"update differs by {noise_ckpt_diff}")
+    emit({"phase": "host_loops", "gpu": card, "cf_aviary": cf_records,
+          "cf_py": {"duration_fraction": 0.05, "control_steps": 26,
+                    "ticks": 520, "seconds": cf_seconds,
+                    "ticks_per_s": 520 / cf_seconds},
+          "beta_aviary": beta_records, "gxx_bridge_build_s": gxx_seconds,
+          "debug_probes": {"card_vs_cpu_max_abs_drift": debug_drift,
+                           "seconds_card_and_cpu": debug_seconds},
+          "checkpoint": {"path": path, "resume_max_abs_diff": ckpt_diff,
+                         "resume_bitwise_equal": True,
+                         "reset_noise_resume_max_abs_diff": noise_ckpt_diff,
+                         "reset_noise_draws": b1.reset_noise.index},
+          "launches": host_counts,
+          "seconds": time.perf_counter() - t_host,
+          "drift_bounds": {"cf_pos_m": CF_POS_DRIFT,
+                           "cf_state": PYB_ANGV_TOL, "cf_rpm": PID_RPM_TOL,
+                           "debug_probes": DEBUG_DRIFT},
+          "note": "host clock; ticks_per_s: firmware ticks (one core.step "
+                  "each) a second of one CFAviary; drift: card against "
+                  "CPU, free-running, held to drift_bounds ((atol, rtol) "
+                  "where a pair)"})
     for name, key in (("reset_noise_hover4096", ("dyn_ctrl_step",
                                                  "hover4096")),
                       ("reset_noise_routing4x4096", ("pid_dyn_ctrl_step",
@@ -2693,7 +3039,9 @@ def main():
                            *(("reset_noise_" + k, v)
                              for k, v in noise_counts.items()),
                            ("gym_adapter_images", adapter_counts),
-                           ("swarm4096x4", swarm_counts)):
+                           ("swarm4096x4", swarm_counts),
+                           ("routing3x128_pyb_learn", rr_learn_counts),
+                           ("routing3x64_pyb_eval", rr_eval_counts)):
         for name in counts:
             rec = summary[(name, config)]
             kernels.append({

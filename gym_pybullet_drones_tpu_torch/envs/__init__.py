@@ -1,5 +1,5 @@
 """Environments: functional core, task layer, fast batched stepping, class
-adapters."""
+adapters, and the firmware-in-the-loop and SITL aviaries."""
 from gym_pybullet_drones_tpu_torch.envs.core import (  # noqa: F401
     AviaryConfig,
     EnvState,
@@ -40,4 +40,6 @@ from gym_pybullet_drones_tpu_torch.envs.gym_adapter import (  # noqa: F401
     MultiHoverAviary,
     VelocityAviary,
 )
+from gym_pybullet_drones_tpu_torch.envs.cf_aviary import CFAviary  # noqa: F401
+from gym_pybullet_drones_tpu_torch.envs.beta_aviary import BetaAviary  # noqa: F401
 from gym_pybullet_drones_tpu_torch.envs.spaces import Box  # noqa: F401

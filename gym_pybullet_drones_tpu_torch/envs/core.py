@@ -74,6 +74,13 @@ def map_leaves(fn, *trees):
     return type(first)(*(map_leaves(fn, *xs) for xs in zip(*trees)))
 
 
+def leaves(tree) -> list:
+    """The tensors of a `map_leaves` tree (or one tensor), in order."""
+    out = []
+    map_leaves(out.append, tree)
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class AviaryConfig:
     """Static environment configuration (hashable).

@@ -67,6 +67,24 @@ class ResetNoise:
         self.index += 1
         return self.block[k]
 
+    def get_state(self) -> dict:
+        """The stream's position: the draw index, the generator's state and
+        the current block (tensors, ints and None only, for a checkpoint)."""
+        return {"shape": list(self.shape), "index": self.index,
+                "generator": self.generator.get_state(),
+                "block": None if self.block is None else self.block.clone()}
+
+    def set_state(self, state: dict) -> None:
+        """Continue from `get_state()`'s position: the same draws follow."""
+        if tuple(state["shape"]) != self.shape:
+            raise ValueError(f"a reset-noise stream of shape "
+                             f"{tuple(state['shape'])} does not fit "
+                             f"{self.shape}")
+        self.index = int(state["index"])
+        self.generator.set_state(state["generator"].cpu())
+        block = state["block"]
+        self.block = None if block is None else block.to(self.device).clone()
+
 
 def _flat_reset(cfg, task, num_envs: int, device):
     """The deterministic reset tiled to the flat (B*N, k) carry, and its
@@ -103,6 +121,9 @@ def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
     `done`).  The stream lives in this closure (an EnvState carries no
     generator; `step_fn.reset_noise()` returns it, None for a
     deterministic task); before the first reset_fn it is seed 0's.
+    `step_fn.use_reset_noise(stream)` hands the closure a stream that a
+    caller kept (the trainer's `TrainState.reset_noise`), so that a reset
+    in between (an evaluation) does not move the caller's draws.
 
     obs_layout: "drone" -> obs (B, N, D) (reference per-drone layout);
     "flat" -> obs (B, N*D).
@@ -226,7 +247,12 @@ def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
         obs = torch.where(done_bn[:, None], reset_obs, obs)
         return flat, _finalize_obs(obs), reward, term, trunc
 
+    def use_reset_noise(stream: ResetNoise) -> None:
+        nonlocal noise
+        noise = stream
+
     step_fn.reset_noise = lambda: noise
+    step_fn.use_reset_noise = use_reset_noise
     return reset_fn, step_fn
 
 

@@ -4,21 +4,26 @@
         --seed 0 --anneal --max_updates 400 --out curve.json
     ... --multiagent --num_envs 128 --hidden 128 --gamma 0.995 --anneal
     ... --rgb --num_envs 512 --rollout_steps 32 --epochs 4 --lr 1e-4 --anneal
+    ... --routing --num_envs 128 --rollout_steps 64 --epochs 10 --lr 3e-4 \
+        --anneal --gamma 0.99 --log_std_init -1 --hidden 128
 
 Counterpart of the JAX package's `scripts/train_to_threshold.py` for Hover
 (ONE_D_RPM, target 474.15), MultiHover (2 drones, target 949.5), both on
-PYB physics, and RGB Hover (ONE_D_RPM, target 474.15, DYN physics, each
-drone's camera image as its observation, the NatureCNN policy): the same
-flags, the same configurations (240 Hz under 30 Hz control, 4
-minibatches), an evaluation (`evaluate(episodic=True)`) after every
-update, and the same fields in the JSON curve it writes.  The thresholds
-are the reference's early-stop values (its examples/learn.py:78-83).
-`platform` is "gpu" and `device` the card's name and power limit as
-nvidia-smi prints them ("cpu" with `--device cpu`).
+PYB physics, RGB Hover (ONE_D_RPM, target 474.15, DYN physics, each
+drone's camera image as its observation, the NatureCNN policy) and the
+routing fleet (`--routing`: `make_routing_config(num_drones=3,
+spacing=0.4)`, PYB physics, PID waypoint actions): the same flags, the
+same configurations (240 Hz under 30 Hz control, 4 minibatches), an
+evaluation after every update, and the same fields in the JSON curve it
+writes.  The Hover thresholds are the reference's early-stop values (its
+examples/learn.py:78-83), evaluated by `evaluate(episodic=True)`; the
+routing target is an all-arrivals rate of 0.9 over 64 deterministic
+episodes of 16 s (`rl.ppo.make_arrival_rate`; the reference defines no
+routing threshold).  `platform` is "gpu" and `device` the card's name and
+power limit as nvidia-smi prints them ("cpu" with `--device cpu`).
 
-`--routing` and `--sharded` raise NotImplementedError: they wait for
-ROADMAP.md queue 1, items 9 (the routing run) and 16 (sharding, not
-ported).
+`--sharded` raises NotImplementedError: sharding is not ported (ROADMAP.md
+queue 1, item 16).
 """
 import argparse
 import json
@@ -31,8 +36,9 @@ import torch
 
 from gym_pybullet_drones_tpu_torch import params as P
 from gym_pybullet_drones_tpu_torch.envs import (
-    AviaryConfig, HoverTask, MultiHoverTask)
-from gym_pybullet_drones_tpu_torch.rl import PPOConfig, make_train
+    AviaryConfig, HoverTask, MultiHoverTask, make_routing_config)
+from gym_pybullet_drones_tpu_torch.rl import (
+    PPOConfig, make_arrival_rate, make_train)
 from gym_pybullet_drones_tpu_torch.utils.device import resolve_device
 from gym_pybullet_drones_tpu_torch.utils.enums import (
     ActionType, ObservationType, Physics)
@@ -73,14 +79,16 @@ def main(argv=None):
                          "artifacts/torch_<task>_seed<seed>.json)")
     ap.add_argument("--sharded", type=int, default=0, metavar="N")
     args = ap.parse_args(argv)
-    for flag, item in (("routing", "9 (the routing run)"),
-                       ("sharded", "16 (sharding: not ported)")):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag} waits for ROADMAP.md queue 1, item {item}")
+    if args.sharded:
+        raise NotImplementedError(
+            "--sharded waits for ROADMAP.md queue 1, item 16 (sharding: not "
+            "ported)")
     device = resolve_device(args.device)
 
-    if args.rgb:
+    if args.routing:
+        cfg, task = make_routing_config(num_drones=3, spacing=0.4)
+        name, target, physics = "routing", 0.9, cfg.physics
+    elif args.rgb:
         name, target, physics = "hover_rgb", 474.15, Physics.DYN
         cfg = AviaryConfig(drone=P.CF2X, num_drones=1, physics=physics,
                            pyb_freq=240, ctrl_freq=30)
@@ -103,16 +111,25 @@ def main(argv=None):
                     hidden=(args.hidden, args.hidden))
     init, update, evaluate, _ = make_train(cfg, task, ppo, device=device)
     ts = init(torch.Generator(device).manual_seed(args.seed))
+    if args.routing:
+        # success metric: the share of 64 deterministic episodes in which
+        # EVERY drone reaches its destination within the 16 s episode
+        arrival_rate = make_arrival_rate(
+            cfg, task, 64, int(task.episode_len_sec * cfg.ctrl_freq),
+            device)
+        eval_fn = lambda net: float(arrival_rate(net)[0])
+    else:
+        # reference episode accounting (QUIRKS.md #11): the default step
+        # count episode_len_sec * ctrl_freq + 2, stopped at the first
+        # terminated/truncated
+        eval_fn = lambda net: float(evaluate(net, episodic=True).mean())
 
     curve = []
     start = time.time()
     reached_at = None
     for u in range(args.max_updates):
         ts, metrics = update(ts)
-        # reference episode accounting (QUIRKS.md #11): the default step
-        # count episode_len_sec * ctrl_freq + 2, stopped at the first
-        # terminated/truncated
-        mean_ret = float(evaluate(ts.network, episodic=True).mean())
+        mean_ret = eval_fn(ts.network)
         curve.append({
             "update": u,
             "env_steps": (u + 1) * ppo.batch_size,
@@ -130,8 +147,8 @@ def main(argv=None):
 
     out = {
         "task": name,
-        "metric": "eval_return",
-        "action_type": "one_d_rpm",
+        "metric": "all_arrivals_rate" if args.routing else "eval_return",
+        "action_type": "pid_waypoint" if args.routing else "one_d_rpm",
         "obs_type": task.obs.value,
         "physics": physics.value,
         "seed": args.seed,
@@ -139,7 +156,11 @@ def main(argv=None):
         "device": device_name(device),
         "torch": torch.__version__,
         "target_reward": target,
-        "reference_source": "gym_pybullet_drones/examples/learn.py:78-83",
+        "reference_source":
+            ("gym_pybullet_drones/envs/BaseAviary.py:1105-1147 "
+             "(routing machinery; threshold is ours — the reference "
+             "defines none)") if args.routing else
+            "gym_pybullet_drones/examples/learn.py:78-83",
         "env_path": update.env_path,
         "reached": reached_at is not None,
         "reached_at_update": reached_at,

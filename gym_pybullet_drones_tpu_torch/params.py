@@ -319,3 +319,55 @@ def to_urdf(params: DroneParams, path: str) -> str:
     with open(path, "w") as f:
         f.write(xml)
     return path
+
+
+def obstacle_asset_path(name: str) -> str:
+    """Path of an in-package obstacle URDF asset (e.g. 'architrave', 'box');
+    the port's own copies of the JAX package's assets."""
+    import os
+    return os.path.join(os.path.dirname(__file__), "assets", f"{name}.urdf")
+
+
+def load_obstacle_urdf(path: str, position=(0.0, 0.0, 0.0)) -> tuple:
+    """Parse an obstacle URDF's collision geometry into an engine obstacle.
+
+    Returns the tuple format consumed by the PYB-mode steppers
+    (ops/rigid_body.pyb_step `obstacles=`): `(x, y, z, r)` for a sphere,
+    `(x, y, z, hx, hy, hz)` for a box (center + half extents).  A cylinder
+    is converted to its bounding box.  `position` places the body in the
+    world (role of the basePosition argument of the reference's
+    p.loadURDF, e.g. examples/debug.py:19-20).
+
+    Limitations: only the FIRST link's first collision (or visual) geometry
+    is used and its <origin rpy> is ignored — shapes are placed axis-aligned
+    at base position + collision <origin xyz>.  Multi-link or rotated
+    obstacle URDFs need explicit obstacle tuples instead.
+    """
+    root = etxml.parse(path).getroot()
+    geom = None
+    origin = (0.0, 0.0, 0.0)
+    for tag in ("collision", "visual"):   # visual-only URDF: the visual
+        for link in root.iter("link"):
+            block = link.find(tag)
+            if block is not None:
+                geom = block.find("geometry")[0]
+                og = block.find("origin")
+                if og is not None and "xyz" in og.attrib:
+                    origin = tuple(
+                        float(s) for s in og.attrib["xyz"].split())
+                break
+        if geom is not None:
+            break
+    if geom is None:
+        raise ValueError(f"no collision/visual geometry in {path}")
+    x, y, z = (float(v) + o for v, o in zip(position, origin))
+    if geom.tag == "sphere":
+        return (x, y, z, float(geom.attrib["radius"]))
+    if geom.tag == "box":
+        sx, sy, sz = (float(s) for s in geom.attrib["size"].split())
+        return (x, y, z, sx / 2, sy / 2, sz / 2)
+    if geom.tag == "cylinder":
+        r = float(geom.attrib["radius"])
+        h = float(geom.attrib["length"])
+        return (x, y, z, r, r, h / 2)
+    raise ValueError(f"unsupported obstacle geometry <{geom.tag}> in {path}")

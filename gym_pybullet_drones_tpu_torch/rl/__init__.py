@@ -5,6 +5,7 @@ from gym_pybullet_drones_tpu_torch.rl.ppo import (  # noqa: F401
     PPOConfig,
     TrainState,
     Transition,
+    make_arrival_rate,
     make_train,
 )
 from gym_pybullet_drones_tpu_torch.rl.population import (  # noqa: F401

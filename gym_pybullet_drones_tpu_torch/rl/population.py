@@ -98,7 +98,7 @@ def make_train_population(env_cfg: core.AviaryConfig, task, ppo: PPOConfig,
         return TrainState(
             network=net, opt_state=adam_init(list(net.parameters())),
             env_state=env_state, last_obs=obs, generator=generator,
-            update_idx=0)
+            update_idx=0, reset_noise=step.reset_noise())
 
     def draws_of(generator) -> Draws:
         noise = torch.randn((K, T, E, act_dim), generator=generator,
@@ -116,6 +116,8 @@ def make_train_population(env_cfg: core.AviaryConfig, task, ppo: PPOConfig,
                    after_rollout=None):
         if draws is None:
             draws = draws_of(ts.generator)
+        if ts.reset_noise is not None:
+            step.use_reset_noise(ts.reset_noise)
         (opt_state, env_state, obs), metrics = run(
             ts.network, ts.opt_state, ts.env_state, ts.last_obs, draws,
             after_rollout)
@@ -135,7 +137,9 @@ def make_train_population(env_cfg: core.AviaryConfig, task, ppo: PPOConfig,
 def member_state(ts: TrainState, k: int) -> TrainState:
     """Member k of a population TrainState as a single run's TrainState
     (what `pop_update.single` takes): copies of its network, Adam moments,
-    env columns and observations; the generator is the population's."""
+    env columns and observations; the generator is the population's.  The
+    population's reset-noise stream is not sliced: the member's env draws
+    from the stream of the env it is stepped in."""
     net = ts.network
     K = net.num_members
     one = net.member(k)

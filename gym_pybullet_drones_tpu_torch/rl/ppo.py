@@ -117,13 +117,17 @@ class TrainState(NamedTuple):
     update returns holds the same module and moment tensors as the one it
     was given.  `generator` (on the training device) draws the rollout
     noise and the minibatch permutations, where the JAX package splits
-    `key`."""
+    `key`.  `reset_noise` is the batched env's reset-noise stream
+    (`envs/fast.py` `ResetNoise`) for a task with reset noise, else None:
+    where the JAX package's env state carries its key, the update hands
+    this stream to the env and advances it in place, as the generator."""
     network: torch.nn.Module
     opt_state: AdamState
     env_state: Any             # fused carry (RC, E), or the flat EnvState
     last_obs: torch.Tensor     # (num_envs, obs_flat)
     generator: torch.Generator
     update_idx: int
+    reset_noise: Any = None    # ResetNoise | None
 
 
 class Draws(NamedTuple):
@@ -244,6 +248,10 @@ def make_env(env_cfg: core.AviaryConfig, task, num_members: int,
             env_state, action.reshape(K * E, n_drones, act_dim_per_drone))
         return (env_state, obs.reshape(K, E, obs_dim),
                 *(x.reshape(K, E) for x in (reward, term, trunc)))
+    # the batched path's reset-noise stream (None on the fused path, which
+    # refuses noise) and its setter, for `TrainState.reset_noise`
+    step.reset_noise = getattr(env_step, "reset_noise", lambda: None)
+    step.use_reset_noise = getattr(env_step, "use_reset_noise", None)
     return reset, step, path
 
 
@@ -442,6 +450,38 @@ def make_evaluate(env_cfg: core.AviaryConfig, task, template, reset, step):
     return evaluate
 
 
+def make_arrival_rate(env_cfg: core.AviaryConfig, task, num_envs: int,
+                      horizon: int, device=None):
+    """The routing task's success metric, the all-arrivals rate: the share
+    of `num_envs` episodes in which EVERY drone reaches its destination
+    (`terminated` fires) within `horizon` control steps under the policy
+    mean; the JAX package's `scripts/train_to_threshold.py --routing`
+    evaluator.
+
+    The envs run `make_batched_step(autoreset=False, obs_layout="flat")`
+    from the task's reset, so an env that has arrived flies on and counts
+    once.  Returns rate_fn(network) -> (rate, ever, state): the rate as a
+    0-d tensor, each env's arrival flag (num_envs,) and the envs' final
+    flat state, all on the device; nothing inside the loop reads back.
+    `device`: None = the CUDA card."""
+    reset, step = make_batched_step(env_cfg, task, num_envs,
+                                    autoreset=False, obs_layout="flat",
+                                    device=device)
+    n, act_dim = env_cfg.num_drones, task.action_dim(env_cfg)
+
+    def rate_fn(network: torch.nn.Module):
+        state, obs = reset()
+        ever = torch.zeros(num_envs, dtype=torch.bool, device=obs.device)
+        with torch.no_grad():
+            for _ in range(horizon):
+                mean = network(obs)[0]
+                state, obs, _, term, _ = step(state,
+                                              mean.reshape(-1, n, act_dim))
+                ever = ever | term
+        return ever.float().mean(), ever, state
+    return rate_fn
+
+
 def make_train(env_cfg: core.AviaryConfig, task, ppo: PPOConfig,
                device=None, network: torch.nn.Module | None = None,
                env_path: str | None = None):
@@ -513,7 +553,8 @@ def make_train(env_cfg: core.AviaryConfig, task, ppo: PPOConfig,
         return TrainState(
             network=net, opt_state=adam_init(list(net.parameters())),
             env_state=env_state, last_obs=obs[0],
-            generator=generator, update_idx=0)
+            generator=generator, update_idx=0,
+            reset_noise=step.reset_noise())
 
     def _draws(generator) -> Draws:
         noise = torch.randn((T, E, act_dim), generator=generator,
@@ -530,6 +571,8 @@ def make_train(env_cfg: core.AviaryConfig, task, ppo: PPOConfig,
                after_rollout=None):
         if draws is None:
             draws = _draws(ts.generator)
+        if ts.reset_noise is not None:
+            step.use_reset_noise(ts.reset_noise)
         (opt_state, env_state, obs), metrics = run(
             ts.network, ts.opt_state, ts.env_state, ts.last_obs[None],
             Draws(draws.noise[None], draws.perms[None]), after_rollout)

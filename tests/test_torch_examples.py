@@ -109,3 +109,44 @@ def test_logger_matches_jax(tmp_path):
         np.testing.assert_array_equal(
             np.loadtxt(os.path.join(csv, f), delimiter=","),
             np.loadtxt(os.path.join(jcsv, f), delimiter=","), err_msg=f)
+
+
+def test_debug_probes_match_jax():
+    """`examples/debug.py`'s four probes (hover, lateral force, yaw torque,
+    flying into the architrave beam) on the port's `pyb_step` against the
+    JAX package's, float32 on both sides, from the same URDF obstacles."""
+    import jax
+    import jax.numpy as jnp
+    from gym_pybullet_drones_tpu import params as JP
+    from gym_pybullet_drones_tpu.ops.rigid_body import PybState, pyb_step
+    from gym_pybullet_drones_tpu_torch import params as TP
+    from gym_pybullet_drones_tpu_torch.examples.debug import DT, probes
+    from tests._torch_helpers import ATOL, RTOL
+    out = probes("cpu")
+    f32 = lambda v: jnp.asarray(v, jnp.float32)
+    start = PybState(pos=f32([[0.0, 0.0, 1.0]]), quat=f32([[0, 0, 0, 1.0]]),
+                     vel=f32([[0.0, 0.0, 0.0]]), ang_v=f32([[0.0, 0.0, 0.0]]))
+    rpm = jnp.full((1, 4), JP.CF2X.hover_rpm, jnp.float32)
+    obstacles = tuple(JP.load_obstacle_urdf(JP.obstacle_asset_path(n), p)
+                      for n, p in (("architrave", (0.5, 0.0, 1.0)),
+                                   ("box", (1.0, 0.0, 0.05))))
+    assert obstacles == tuple(
+        TP.load_obstacle_urdf(TP.obstacle_asset_path(n), p)
+        for n, p in (("architrave", (0.5, 0.0, 1.0)),
+                     ("box", (1.0, 0.0, 0.05))))
+    runs = {"hover": (start, 240, {}),
+            "force": (start, 120, {"ext_force": f32([[0.01, 0.0, 0.0]])}),
+            "torque": (start, 120, {"ext_torque": f32([[0.0, 0.0, 1e-5]])}),
+            "obstacle": (start._replace(vel=f32([[0.5, 0.0, 0.0]])), 240,
+                         {"obstacles": obstacles})}
+    for name, (s, steps, kw) in runs.items():
+        step = jax.jit(lambda s: pyb_step(JP.CF2X, s, rpm, DT, **kw))
+        for _ in range(steps):
+            s = step(s)
+        for k in ("pos", "quat", "vel", "ang_v"):
+            np.testing.assert_allclose(getattr(out[name], k).numpy(),
+                                       np.asarray(getattr(s, k)),
+                                       atol=ATOL, rtol=RTOL,
+                                       err_msg=f"{name} {k}")
+    # the beam stops the drone short of its face
+    assert float(out["obstacle"].pos[0, 0]) < 0.5

@@ -66,7 +66,19 @@ def test_scan_sees_the_port():
                  "gym_pybullet_drones_tpu_torch/examples/downwash.py",
                  "gym_pybullet_drones_tpu_torch/examples/routing.py",
                  "gym_pybullet_drones_tpu_torch/examples/swarm.py",
-                 "gym_pybullet_drones_tpu_torch/_build.py", "chip_smoke.py"):
+                 "gym_pybullet_drones_tpu_torch/_build.py",
+                 "gym_pybullet_drones_tpu_torch/control/commander.py",
+                 "gym_pybullet_drones_tpu_torch/control/firmware.py",
+                 "gym_pybullet_drones_tpu_torch/control/firmware_pid.py",
+                 "gym_pybullet_drones_tpu_torch/control/ctbr.py",
+                 "gym_pybullet_drones_tpu_torch/envs/cf_aviary.py",
+                 "gym_pybullet_drones_tpu_torch/envs/beta_aviary.py",
+                 "gym_pybullet_drones_tpu_torch/native/__init__.py",
+                 "gym_pybullet_drones_tpu_torch/utils/checkpoint.py",
+                 "gym_pybullet_drones_tpu_torch/examples/cf.py",
+                 "gym_pybullet_drones_tpu_torch/examples/beta.py",
+                 "gym_pybullet_drones_tpu_torch/examples/debug.py",
+                 "chip_smoke.py"):
         assert must in names
     assert FORBIDDEN.search("import jax.numpy as jnp")
     assert FORBIDDEN.search("from gym_pybullet_drones_tpu import params")
@@ -99,3 +111,22 @@ def test_make_train_defaults_to_the_card(monkeypatch):
     cfg = AviaryConfig(P.CF2X, 1, Physics.DYN, 240, 30)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_train(cfg, HoverTask(act=ActionType.RPM), PPOConfig(num_envs=4))
+
+
+def test_host_components_build_only_on_use():
+    """Importing the host-side modules builds no native library: the g++
+    bridge and oracle are built at first use (checked in a fresh process,
+    which no earlier test in this worker has touched)."""
+    import subprocess
+    import sys
+    code = (
+        "import gym_pybullet_drones_tpu_torch.envs, "
+        "gym_pybullet_drones_tpu_torch.examples.beta, "
+        "gym_pybullet_drones_tpu_torch.examples.debug, "
+        "gym_pybullet_drones_tpu_torch.utils.checkpoint\n"
+        "from gym_pybullet_drones_tpu_torch import native\n"
+        "print(native._bridge_lib.cache_info().currsize, "
+        "native._oracle_lib.cache_info().currsize)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.split() == ["0", "0"]
