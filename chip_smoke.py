@@ -20,7 +20,13 @@ observations: the render kernel bit for bit against its plain version
 (`ops/render.py`), the RGB Hover rollout through `make_batched_step` (256
 envs; `dyn_ctrl_step` and one render launch a control step), one pixel-PPO
 update on the card against the CPU, and the JAX package's pixel-PPO
-throughput configuration (512 envs x 32 steps, the NatureCNN).  Between
+throughput configuration (512 envs x 32 steps, the NatureCNN); then a
+population of pixel policies (the stacked NatureCNN, one grouped
+convolution a trunk layer for all members): K = 2 members held against the
+CPU and each against its single-policy update, and K = 8 members of the
+pixel-PPO configuration (8 x 512 envs, one K1 and one render launch a
+control step for all of them) against the one policy, with K1 and the
+render kernel at 4096 cameras against their plain versions.  Between
 the PPO and the RGB phases, population training (`rl/population.py`): a
 population update of K = 4 policies (one fused env launch a control step
 for all of them) held member by member against the single-policy update
@@ -45,8 +51,10 @@ run's shapes against their plain versions; and the host-side loops:
 `CFAviary` with each firmware controller for 480 ticks on the card and on
 the CPU, `examples/cf.py` cut to 5% of its flight, `BetaAviary` on the
 card against loopback listeners on 127.0.0.2 (Python sockets) and
-127.0.0.3 (the g++-built native bridge), `examples/debug.py`'s probes,
-and a checkpoint of the routing trainer saved, restored and resumed.
+127.0.0.3 (the g++-built native bridge), the port's Mellinger firmware
+against the g++-built C++ firmware oracle over a takeoff-goto-land loop,
+`examples/debug.py`'s probes, and a checkpoint of the routing trainer
+saved, restored and resumed.
 Any failed phase raises and the process exits non-zero.  It imports only
 torch, numpy and the port.
 
@@ -57,9 +65,10 @@ Output: one JSON object per line, in order `env`, `build`,
 `population_update_parity`, `ppo_population8x1024`,
 `population_kernel_checks`, `ppo_bf16_parity`,
 `render_checks`, `hover256_rgb`, `ppo_rgb_update_parity`, `ppo_rgb512`,
-`reset_noise`, `gym_adapter`, `examples`, `routing_learn`, `host_loops`,
-`timing`, then the `{"kernels": [...]}` summary (one entry per kernel and
-main-path shape), then the card's name and power limit as nvidia-smi prints them,
+`population_rgb_update_parity`, `ppo_population_rgb8x512`, `reset_noise`,
+`gym_adapter`, `examples`, `routing_learn`, `host_loops`, `timing`, then
+the `{"kernels": [...]}` summary (one entry per kernel and main-path
+shape), then the card's name and power limit as nvidia-smi prints them,
 then `{"ok": true, "device": {...}}` as the last line.
 """
 import copy
@@ -136,6 +145,10 @@ PPO_METRIC_TOL = (1e-6, 1e-5)               # (atol, rtol)
 BF16_PARAM_ATOL = 5e-4
 BF16_PARAM_NEAR, BF16_FAR_SHARE = 2e-5, 0.05
 BF16_METRIC_TOL = (1e-6, 2.0 ** -8)         # (atol, rtol)
+# The port's Mellinger controller (float64, on the host) against the C++
+# firmware oracle over tests/test_firmware_oracle.py's takeoff-goto-land
+# loop, at that file's bound: control counts reach 6e4.
+FIRMWARE_ORACLE_ATOL = 0.05
 
 
 def emit(obj):
@@ -475,7 +488,9 @@ def main():
     from gym_pybullet_drones_tpu_torch.ops.render_check import (
         CHECKER_TIE, DEPTH_ATOL, RGBA_ATOL, TIE_SHARE, compare_render,
         obs_ties)
-    from gym_pybullet_drones_tpu_torch.models import ActorCriticCNN
+    from gym_pybullet_drones_tpu_torch.models import (
+        ActorCriticCNN, PopulationActorCriticCNN)
+    from gym_pybullet_drones_tpu_torch.models.cnn import ieee_fp32_convs
     from gym_pybullet_drones_tpu_torch.ops.kernel_env import (
         DRAG_MODES, DW_MODES, GND_MODES)
     from gym_pybullet_drones_tpu_torch.ops.kernel_fused import PID_FAMILY
@@ -1582,10 +1597,11 @@ def main():
         ranges of their own: each phase's launches and device time (the
         union of its kernels' intervals; a kernel counts where it starts)
         over its wall time on the host's clock, the fastest of the `timed`
-        updates' `rollout_ms` / `optimize_ms`; the six kernels that took
-        the most device time, and the six operators that took the most
-        host time of their own (the profiler's self CPU time, which its
-        tracing stretches)."""
+        updates' `rollout_ms` / `optimize_ms`, and the three kernels of the
+        phase that took the most device time; the six kernels of the update
+        that took the most device time, and the six operators that took the
+        most host time of their own (the profiler's self CPU time, which
+        its tracing stretches)."""
         names = (f"{label}.rollout", f"{label}.optimize")
         ranges = [record_function(names[0])]
 
@@ -1606,14 +1622,23 @@ def main():
         kernels = [e for e in events
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and e.name not in names]
+        def top(launched, n):
+            by_name = {}
+            for k in launched:
+                n_k, t_k = by_name.get(k.name, (0, 0.0))
+                by_name[k.name] = (n_k + 1, t_k + k.time_range.elapsed_us())
+            return [{"name": name[:70], "launches": n_k, "ms": t_k / 1e3}
+                    for name, (n_k, t_k) in sorted(
+                        by_name.items(), key=lambda kv: -kv[1][1])[:n]]
+
         out = {}
         for name, wall in zip(names, ("rollout_ms", "optimize_ms")):
             spans = [e.time_range for e in events if e.name == name
                      and e.device_type != torch.autograd.DeviceType.CUDA]
+            launched = [k for k in kernels if any(
+                sp.start <= k.time_range.start <= sp.end for sp in spans)]
             inside = sorted((k.time_range.start, k.time_range.end)
-                            for k in kernels if any(
-                                sp.start <= k.time_range.start <= sp.end
-                                for sp in spans))
+                            for k in launched)
             busy, end = 0.0, float("-inf")
             for lo, hi in inside:
                 if hi > end:
@@ -1621,15 +1646,9 @@ def main():
                     end = hi
             wall_ms = min(u[wall] for u in timed)
             out[name] = {"launches": len(inside), "device_ms": busy / 1e3,
-                         "device_busy_share": busy / 1e3 / wall_ms}
-        by_name = {}
-        for k in kernels:
-            n_k, t_k = by_name.get(k.name, (0, 0.0))
-            by_name[k.name] = (n_k + 1, t_k + k.time_range.elapsed_us())
-        out["top_kernels"] = [
-            {"name": name[:70], "launches": n_k, "ms": t_k / 1e3}
-            for name, (n_k, t_k) in sorted(by_name.items(),
-                                           key=lambda kv: -kv[1][1])[:6]]
+                         "device_busy_share": busy / 1e3 / wall_ms,
+                         "top_kernels": top(launched, 3)}
+        out["top_kernels"] = top(kernels, 6)
         ops = [a for a in prof.key_averages() if a.key not in names]
         out["top_host_ops"] = [
             {"name": a.key[:50], "calls": a.count,
@@ -2197,6 +2216,185 @@ def main():
                   "the fastest timed update's wall time of the phase"})
     dyn_case(P.CF2X, 512, False, timed="ppo_rgb512",
              gen=np.random.default_rng(SEED + 9))
+
+    # ---- a population of pixel policies (rl/population.py on RGB): one
+    # PopulationActorCriticCNN, each trunk layer one grouped convolution
+    # over the members; one K1 and one render launch a control step for
+    # all K x E envs ----
+    # population_rgb_update_parity: K = 2 members of ppo_rgb_update_parity's
+    # configuration (16 envs x 12 steps, 2 minibatches, 2 epochs), the
+    # population on the card against the CPU and each member on the card
+    # against `make_train`'s update of its weights and draws on the card,
+    # held as ppo_rgb_update_parity
+    rng = np.random.default_rng(SEED + 12)
+    KR = 2
+    draws = Draws(
+        torch.from_numpy(rng.normal(size=(KR, 12, 16, 1)).astype(np.float32)),
+        torch.from_numpy(np.stack([[rng.permutation(12) for _ in range(2)]
+                                   for _ in range(KR)])))
+    sides, weights = {}, None
+    for where in ("cpu", dev):
+        pinit, pupd, _, pnet = make_train_population(gcfg, qtask, qp, KR,
+                                                     device=where)
+        if not isinstance(pnet, PopulationActorCriticCNN):
+            raise AssertionError("population_rgb_update_parity: not the "
+                                 "stacked CNN")
+        ts = pinit(torch.Generator(where).manual_seed(SEED))
+        if weights is None:
+            weights = {k: v.clone() for k, v in
+                       ts.network.state_dict().items()}
+        ts.network.load_state_dict(weights)
+        singles = [member_state(ts, k) for k in range(KR)]
+        reset_counts()
+        ts, metrics = pupd(ts, Draws(*(x.to(where) for x in draws)))
+        sides[torch.device(where).type] = (
+            ts, {k: v.tolist() for k, v in metrics.items()},
+            (kernel_dyn.launches, kernel_render.launches), pupd.env_path)
+    (cpu_ts, cpu_m, cpu_n, _), (card_ts, card_m, card_n, card_path) = \
+        sides["cpu"], sides["cuda"]
+    if card_n != (12, 12) or cpu_n != (0, 0) or card_path != "batched":
+        raise AssertionError(f"population_rgb_update_parity: launches "
+                             f"{card_n} on the card (one K1 and one render a "
+                             f"control step for both members), {cpu_n} "
+                             f"counted on the CPU, path {card_path}")
+    prgb_param_err = state_err(card_ts.network.state_dict(),
+                               cpu_ts.network.state_dict())
+    prgb_metric_err = {k: max(abs(a - b) for a, b in zip(card_m[k],
+                                                         cpu_m[k]))
+                       for k in cpu_m}
+    prgb_obs_ties = obs_ties("population_rgb_update_parity last_obs",
+                             card_ts.last_obs, cpu_ts.last_obs.to(dev))
+    moved = state_err(cpu_ts.network.state_dict(), weights)
+    if prgb_param_err > PPO_PARAM_ATOL or moved < 100 * PPO_PARAM_ATOL \
+            or not all(metric_close(a, b, PPO_METRIC_TOL) for k in cpu_m
+                       for a, b in zip(card_m[k], cpu_m[k])):
+        raise AssertionError(f"population_rgb_update_parity, card vs CPU: "
+                             f"weights {prgb_param_err} (moved {moved}), "
+                             f"metrics {prgb_metric_err}")
+    member_param_err, member_metric_err = [], []
+    for k in range(KR):
+        one, m1 = pupd.single(singles[k], Draws(draws.noise[k].to(dev),
+                                                draws.perms[k].to(dev)))
+        member_param_err.append(state_err(
+            card_ts.network.member(k).state_dict(),
+            one.network.state_dict()))
+        member_metric_err.append(max(abs(card_m[q][k] - float(v))
+                                     for q, v in m1.items()))
+        obs_ties(f"population_rgb_update_parity member {k} last_obs",
+                 card_ts.last_obs[k], one.last_obs)
+        if member_param_err[-1] > PPO_PARAM_ATOL or not all(
+                metric_close(card_m[q][k], float(v), PPO_METRIC_TOL)
+                for q, v in m1.items()):
+            raise AssertionError(f"population_rgb_update_parity, member {k} "
+                                 f"vs its own update: weights "
+                                 f"{member_param_err[-1]}, metrics "
+                                 f"{member_metric_err[-1]}")
+    emit({"phase": "population_rgb_update_parity", "num_policies": KR,
+          "num_envs": 16, "rollout_steps": 12,
+          "launches": {"dyn_ctrl_step": card_n[0], "render": card_n[1]},
+          "param_atol": PPO_PARAM_ATOL, "metric_tol": PPO_METRIC_TOL,
+          "card_vs_cpu_param_max_abs_err": prgb_param_err,
+          "card_vs_cpu_metric_max_abs_err": prgb_metric_err,
+          "card_vs_cpu_last_obs_ties": prgb_obs_ties,
+          "member_vs_single_param_max_abs_err": member_param_err,
+          "member_vs_single_metric_max_abs_err": member_metric_err,
+          "weights_moved": moved, "conv_precision": "ieee float32",
+          "metrics_card": card_m})
+
+    # ppo_population_rgb8x512: ppo_rgb512's configuration for each of K = 8
+    # members (the K of the JAX package's population throughput
+    # configuration, bench_all.py:142-181): 8 x 512 = 4096 envs a control
+    # step, one warm-up, 3 timed and one profiled update, against
+    # ppo_rgb512's one policy in this run.  Then the trunk of one minibatch
+    # step (8 members x 4096 images, forward and the weight gradients) as
+    # the population computes it, one grouped convolution a layer, against
+    # K separate convolutions a layer, once, for the record.
+    KP = 8
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    pinit, pupd, _, _ = make_train_population(gcfg, ztask, zp, KP,
+                                              device=dev)
+    if pupd.env_path != "batched":
+        raise AssertionError(f"ppo_population_rgb8x512: env path "
+                             f"{pupd.env_path}")
+    ts = pinit(torch.Generator(dev).manual_seed(SEED))
+    ts, metrics = pupd(ts)
+    [v.tolist() for v in metrics.values()]
+    ts, prgb_updates = timed_updates(pupd, ts, 3, KP * 512, 32,
+                                     "ppo_population_rgb8x512")
+    prgb_counts = {"dyn_ctrl_step": kernel_dyn.launches,
+                   "render": kernel_render.launches}
+    # 4 updates of 32 steps, and the reset image built with the step: one
+    # launch of each for all 8 members, ppo_rgb512's counts
+    if prgb_counts != {"dyn_ctrl_step": 4 * 32, "render": 4 * 32 + 1} \
+            or kernel_fused.launches or kernel_pid.launches \
+            or kernel_env.launches:
+        raise AssertionError(f"ppo_population_rgb8x512: launches "
+                             f"{prgb_counts}")
+    ts, prgb_profiled = profiled_update(pupd, ts, "ppo_population_rgb8x512",
+                                        prgb_updates)
+    prgb_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    convs = ts.network.convs
+    conv_params = [p for c in convs for p in (c.weight, c.bias)]
+    images = torch.rand((KP, 8 * 512, 48, 64, 4), device=dev,
+                        generator=torch.Generator(dev).manual_seed(SEED))
+    images.mul_(255.0)
+
+    def trunk_grouped():
+        x = images.permute(1, 0, 4, 2, 3).reshape(8 * 512, KP * 4, 48, 64) \
+            / 255.0
+        for c in convs:
+            x = torch.relu(c(x))
+        return torch.autograd.grad(x.sum(), conv_params)
+
+    def trunk_per_member():
+        total = 0.0
+        for k in range(KP):
+            x = images[k].permute(0, 3, 1, 2).contiguous() / 255.0
+            for c in convs:
+                x = torch.relu(torch.nn.functional.conv2d(
+                    x, c.weight[k], c.bias[k], c.stride))
+            total = total + x.sum()
+        return torch.autograd.grad(total, conv_params)
+
+    with ieee_fp32_convs():
+        trunk_ms = {"grouped": eager_ms(trunk_grouped, 5, 2),
+                    "per_member": eager_ms(trunk_per_member, 5, 2)}
+    del images
+    prgb_rate = float(np.median([u["env_steps_per_s"]
+                                 for u in prgb_updates]))
+    rgb512_rate = float(np.median([u["env_steps_per_s"]
+                                   for u in rgb512_updates]))
+    # both kernels at the population's shapes, against their plain
+    # versions: K1 without obs12 rows and the render kernel (rgba) at 8 x
+    # 512 = 4096 cameras, bit for bit as at 256 and 512
+    dyn_case(P.CF2X, KP * 512, False, timed="ppo_population_rgb8x512",
+             gen=np.random.default_rng(SEED + 13))
+    rng = np.random.default_rng(SEED + 14)
+    render_case("landmark", 1, KP * 512, timed="ppo_population_rgb8x512")
+    emit({"phase": "ppo_population_rgb8x512", "gpu": card,
+          "num_policies": KP, "num_envs": 512, "rollout_steps": 32,
+          "env_path": "batched", "launches": prgb_counts,
+          "updates": prgb_updates, "profiled_update": prgb_profiled,
+          "median_env_steps_per_s": {"population_rgb8x512": prgb_rate,
+                                     "ppo_rgb512": rgb512_rate},
+          "population_over_single": prgb_rate / rgb512_rate,
+          "peak_memory_gb": prgb_peak_gb,
+          "conv_trunk_minibatch_ms": trunk_ms,
+          "conv_precision": "ieee float32",
+          "kernel_checks": checks[-1:] + render_checks[-1:],
+          "note": "aggregate env-steps/s over the 8 policies against "
+                  "ppo_rgb512's one policy of 512 envs in this run; host "
+                  "clock; each update ends in a host readback of its "
+                  "metrics; rollout_ms includes the GAE and ends at a "
+                  "synchronize; launches include the warm-up update; the "
+                  "busy shares divide a profiled update's device time by "
+                  "the fastest timed update's wall time of the phase; "
+                  "peak_memory_gb from reset_peak_memory_stats before the "
+                  "phase's trainer was built; conv_trunk_minibatch_ms: one "
+                  "minibatch's trunk forward and weight gradients, the "
+                  "grouped convolutions against 8 separate ones a layer, "
+                  "CUDA events, not a path of the port"})
 
     # ---- randomized resets: make_batched_step with reset noise ----
     # The card's path against the CPU's plain versions from the same seed:
@@ -2876,6 +3074,52 @@ def main():
     t0 = time.perf_counter()
     native.build("sitl_bridge")
     gxx_seconds = time.perf_counter() - t0
+    # the port's Mellinger controller (float64, as CFAviary runs it on the
+    # host) against the C++ firmware oracle over tests/
+    # test_firmware_oracle.py's takeoff -> goto -> land loop: 5 s of the
+    # 500 Hz controller sampled at 100 Hz, a crude plant driven by the
+    # oracle's output, so a difference is the controllers' alone
+    from gym_pybullet_drones_tpu_torch.control import firmware as fw
+    from gym_pybullet_drones_tpu_torch.native import firmware_oracle
+    t0 = time.perf_counter()
+    native.build("cf_firmware_oracle")
+    oracle_build_seconds = time.perf_counter() - t0
+    f64 = lambda x: torch.tensor(np.asarray(x, np.float64))
+    fdt, fticks = 1.0 / 500.0, 5 * 500
+    t_fw = np.arange(fticks) * fdt
+    wz = np.clip(t_fw / 2.0, 0, 1) * 0.5
+    wz = np.where(t_fw > 6.0, np.maximum(0.0, 0.5 - 0.5 * (t_fw - 6.0) / 2.0),
+                  wz)
+    wps = np.stack([np.clip((t_fw - 3.0) / 2.0, 0, 1) * 0.4,
+                    np.zeros_like(t_fw), wz], axis=-1)
+    fw_state = fw.firmware_init(torch.float64)
+    mel = firmware_oracle.MellingerOracle()
+    unit_q, z3 = np.array([0.0, 0.0, 0.0, 1.0]), np.zeros(3)
+    fpos, fvel, frpy, fgyro = (np.zeros(3) for _ in range(4))
+    oracle_err, oracle_ticks = 0.0, 0
+    for i in range(0, fticks, 5):
+        fq = quat_ops.rpy_to_quat(f64(frpy)).numpy()
+        sp = fw.Setpoint(f64(wps[i]), f64(z3), f64(z3), f64(z3), f64(unit_q))
+        mine, fw_state = fw.mellinger_control(fw_state, sp, f64(fpos),
+                                              f64(fvel), f64(fq), f64(fgyro),
+                                              fdt)
+        ref = mel.tick(wps[i], z3, z3, z3, unit_q, fpos, fvel, fq, fgyro,
+                       fdt)
+        oracle_err = max(oracle_err, float(np.abs(mine.numpy() - ref).max()))
+        oracle_ticks += 1
+        acc = np.array([np.sin(frpy[1]), -np.sin(frpy[0]),
+                        np.cos(frpy[0]) * np.cos(frpy[1])]) \
+            * ref[0] / fw.MASS_THRUST / fw.VEHICLE_MASS - [0.0, 0.0, 9.81]
+        fvel = fvel + 5 * fdt * acc
+        fpos = fpos + 5 * fdt * fvel
+        rate = np.array([ref[1], -ref[2], ref[3]]) / 6e5
+        frpy = 0.95 * frpy + 5 * fdt * rate
+        fgyro = rate * 180.0 / np.pi * 0.2
+    if not (oracle_err < FIRMWARE_ORACLE_ATOL and fpos[2] > 0.1):
+        raise AssertionError(f"firmware oracle: the port's Mellinger "
+                             f"control is {oracle_err} from the C++ oracle "
+                             f"(bound {FIRMWARE_ORACLE_ATOL}); final "
+                             f"height {fpos[2]}")
     beta_records = [beta_loopback("127.0.0.2", False),
                     beta_loopback("127.0.0.3", True)]
     t0 = time.perf_counter()
@@ -2940,6 +3184,11 @@ def main():
                     "ticks": 520, "seconds": cf_seconds,
                     "ticks_per_s": 520 / cf_seconds},
           "beta_aviary": beta_records, "gxx_bridge_build_s": gxx_seconds,
+          "firmware_oracle": {"sequence": "mellinger takeoff-goto-land",
+                              "ticks": oracle_ticks,
+                              "max_abs_err": oracle_err,
+                              "atol": FIRMWARE_ORACLE_ATOL,
+                              "gxx_build_s": oracle_build_seconds},
           "debug_probes": {"card_vs_cpu_max_abs_drift": debug_drift,
                            "seconds_card_and_cpu": debug_seconds},
           "checkpoint": {"path": path, "resume_max_abs_diff": ckpt_diff,
@@ -3036,6 +3285,7 @@ def main():
                            ("ppo_population8x1024", pop_counts),
                            ("hover256_rgb", rgb_counts),
                            ("ppo_rgb512", rgb512_counts),
+                           ("ppo_population_rgb8x512", prgb_counts),
                            *(("reset_noise_" + k, v)
                              for k, v in noise_counts.items()),
                            ("gym_adapter_images", adapter_counts),

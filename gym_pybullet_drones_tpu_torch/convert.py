@@ -11,7 +11,8 @@ carries the JAX package's actor-critic params into `models.ActorCritic`,
 `population_state_dict_from_flax` a population's (the same params with a
 leading member axis) into `models.PopulationActorCritic`, and
 `actor_critic_cnn_state_dict_from_flax` its NatureCNN's into
-`models.ActorCriticCNN`.
+`models.ActorCriticCNN`, `population_cnn_state_dict_from_flax` a
+population of them into `models.PopulationActorCriticCNN`.
 """
 from __future__ import annotations
 
@@ -139,20 +140,26 @@ def population_state_dict_from_flax(params) -> dict:
     `models.PopulationActorCritic` (float32, CPU): each member carried
     across by `actor_critic_state_dict_from_flax`, then stacked; biases
     become (K, 1, out)."""
+    stacked = _stack_members(params, actor_critic_state_dict_from_flax)
+    return {name: x[:, None, :] if name.endswith(".bias") else x
+            for name, x in stacked.items()}
+
+
+def _stack_members(params, convert_member) -> dict:
+    """Every leaf of a population's flax params carries a leading (K,)
+    member axis: each member carried across by `convert_member`, then
+    stacked along a new leading axis."""
     p = params.get("params", params)
     if np.ndim(p.get("log_std")) != 2:
-        raise ValueError("not a population's ActorCritic params: log_std "
-                         "must be (K, action_dim)")
+        raise ValueError("not a population's params: log_std must be (K, "
+                         "action_dim)")
     member = lambda i: {
         name: {leaf: np.asarray(v)[i] for leaf, v in layer.items()}
         if isinstance(layer, dict) else np.asarray(layer)[i]
         for name, layer in p.items()}
-    members = [actor_critic_state_dict_from_flax(member(i))
-               for i in range(len(p["log_std"]))]
-    stacked = {name: torch.stack([m[name] for m in members])
-               for name in members[0]}
-    return {name: x[:, None, :] if name.endswith(".bias") else x
-            for name, x in stacked.items()}
+    members = [convert_member(member(i)) for i in range(len(p["log_std"]))]
+    return {name: torch.stack([m[name] for m in members])
+            for name in members[0]}
 
 
 def actor_critic_cnn_state_dict_from_flax(params) -> dict:
@@ -182,3 +189,17 @@ def actor_critic_cnn_state_dict_from_flax(params) -> dict:
         out[f"{name}.bias"] = f32(p[key]["bias"])
     out["log_std"] = f32(p["log_std"])
     return out
+
+
+def population_cnn_state_dict_from_flax(params) -> dict:
+    """The JAX package's population of `ActorCriticCNN`s (every leaf with a
+    leading (K,) member axis, as `make_train_population`'s init stacks
+    them for an RGB task) as numpy arrays -> the `state_dict` of this
+    package's `models.PopulationActorCriticCNN` (float32, CPU): each
+    member carried across by `actor_critic_cnn_state_dict_from_flax`, then
+    stacked; conv weights become (K, out, in, kh, kw), conv biases (K,
+    out), dense biases (K, 1, out)."""
+    stacked = _stack_members(params, actor_critic_cnn_state_dict_from_flax)
+    return {name: x[:, None, :] if name.endswith(".bias")
+            and not name.startswith("convs.") else x
+            for name, x in stacked.items()}

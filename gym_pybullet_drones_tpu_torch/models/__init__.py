@@ -1,6 +1,7 @@
 """Policy networks."""
 from gym_pybullet_drones_tpu_torch.models.cnn import (  # noqa: F401
     ActorCriticCNN,
+    PopulationActorCriticCNN,
 )
 from gym_pybullet_drones_tpu_torch.models.mlp import (  # noqa: F401
     ActorCritic,

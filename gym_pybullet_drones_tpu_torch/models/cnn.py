@@ -21,6 +21,12 @@ Precision: on the card every convolution of this module runs in IEEE
 float32 (`ieee_fp32_convs`), not in TF32, the default of cuDNN
 convolutions: the JAX reference it is held against is float32, and
 `rl/ppo.py` takes the backward pass under the same scope.
+
+`PopulationActorCriticCNN` stacks K such networks on a leading member
+axis, as `jax.vmap` of the flax module does: each trunk convolution is ONE
+grouped convolution (`groups=K`) over the K members' images, what XLA's
+batching rule makes of a vmapped `Conv` (a feature-group count), and each
+dense layer one batched product (`models.mlp._StackedLinear`).
 """
 from __future__ import annotations
 
@@ -28,8 +34,11 @@ import contextlib
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from gym_pybullet_drones_tpu_torch.models.mlp import (
+    _MemberStack, _StackedLinear)
 from gym_pybullet_drones_tpu_torch.ops.render import IMAGE_SHAPE
 
 TRUNK = ((32, 8, 4), (64, 4, 2), (64, 3, 1))   # (channels, kernel, stride)
@@ -107,3 +116,96 @@ class ActorCriticCNN(nn.Module):
         value = self.value(trunk).reshape(lead)
         return mean, self.log_std, value
 
+
+class _GroupedConv(nn.Module):
+    """K `nn.Conv2d` layers of one shape: weight (K, out, in, kh, kw), bias
+    (K, out); forward maps (M, K*in, H, W) to (M, K*out, H', W') in one
+    grouped convolution, member k's channels the k-th block of each."""
+
+    def __init__(self, layers):
+        super().__init__()
+        self.stride = layers[0].stride
+        self.weight = nn.Parameter(torch.stack(
+            [l.weight.detach() for l in layers]).clone())
+        self.bias = nn.Parameter(torch.stack(
+            [l.bias.detach() for l in layers]).clone())
+
+    def forward(self, x: torch.Tensor):
+        K = self.weight.shape[0]
+        return F.conv2d(x, self.weight.flatten(0, 1), self.bias.flatten(),
+                        self.stride, groups=K)
+
+
+class PopulationActorCriticCNN(_MemberStack):
+    """K `ActorCriticCNN`s of one shape, stacked on a leading member axis.
+
+    forward(obs (K, M, H*W*C) or (K, M, H, W, C)) -> (mean (K, M,
+    action_dim), log_std (K, 1, action_dim), value (K, M)): member k's
+    outputs are what its own `ActorCriticCNN` gives on obs[k].  Parameters
+    and `state_dict` keys are `ActorCriticCNN`'s with a leading K axis
+    (dense biases (K, 1, out)).  `generators` (one per member) seed the
+    members' orthogonal inits: member k is the `ActorCriticCNN` that
+    generators[k] would give.  `from_members` stacks given networks,
+    `member(k)` copies one out.
+
+    The images of all members are copied once into one (M, K*C, H, W)
+    tensor, member-major along the channels, so each trunk layer is one
+    grouped convolution; the last feature map (M, K*64, h, w) is flattened
+    per member in (h, w, c) order, as each member's flax module flattens
+    its NHWC map.
+    """
+
+    def __init__(self, num_members: int, action_dim: int,
+                 image_shape=IMAGE_SHAPE, hidden: int = 512,
+                 generators=None):
+        super().__init__()
+        if generators is None:
+            generators = [None] * num_members
+        if len(generators) != num_members:
+            raise ValueError(f"{len(generators)} generators for "
+                             f"{num_members} members")
+        self._stack([ActorCriticCNN(action_dim, image_shape, hidden,
+                                    generator=g) for g in generators])
+
+    def _stack(self, members):
+        m0 = members[0]
+        shape = (m0.action_dim, m0.image_shape, m0.dense.out_features)
+        if any((m.action_dim, m.image_shape, m.dense.out_features) != shape
+               for m in members):
+            raise ValueError("the members differ in shape")
+        self.num_members = len(members)
+        self.action_dim, self.image_shape, self.hidden = shape
+        # registered in ActorCriticCNN's order, so that parameters() lines
+        # up with a member's
+        self.convs = nn.ModuleList(
+            _GroupedConv([m.convs[i] for m in members])
+            for i in range(len(m0.convs)))
+        self.dense = _StackedLinear([m.dense for m in members])
+        self.mean = _StackedLinear([m.mean for m in members])
+        self.value = _StackedLinear([m.value for m in members])
+        self.log_std = nn.Parameter(torch.stack(
+            [m.log_std.detach() for m in members]).clone())
+
+    def member(self, k: int) -> ActorCriticCNN:
+        """A copy of member k as an `ActorCriticCNN`, on this module's
+        device."""
+        return self._member_into(ActorCriticCNN(
+            self.action_dim, self.image_shape, self.hidden,
+            generator=torch.Generator()), k)
+
+    def forward(self, obs: torch.Tensor):
+        K, M = obs.shape[:2]
+        h, w, c = self.image_shape
+        # (K, M, H, W, C) -> (M, K*C, H, W): one copy, then the scale
+        x = obs.reshape(K, M, h, w, c).permute(1, 0, 4, 2, 3) \
+            .reshape(M, K * c, h, w) / 255.0
+        with ieee_fp32_convs():
+            for conv in self.convs:
+                x = torch.relu(conv(x))
+        # (M, K*C', h', w') -> (K, M, h'*w'*C'), each member's map
+        # flattened in (h, w, c) order
+        x = x.reshape(M, K, -1, *x.shape[2:]).permute(1, 0, 3, 4, 2) \
+            .reshape(K, M, -1)
+        trunk = torch.relu(self.dense(x))
+        return (self.mean(trunk), self.log_std[:, None, :],
+                self.value(trunk).squeeze(-1))

@@ -110,7 +110,27 @@ class _StackedLinear(nn.Module):
             + self.bias.to(cd)
 
 
-class PopulationActorCritic(nn.Module):
+class _MemberStack(nn.Module):
+    """What the stacked populations share: a stack built from given
+    networks, and one member copied out of it."""
+
+    @classmethod
+    def from_members(cls, members):
+        """Copies of `members` (networks of one shape) as one stack."""
+        net = cls.__new__(cls)
+        nn.Module.__init__(net)
+        net._stack(list(members))
+        return net
+
+    def _member_into(self, net: nn.Module, k: int) -> nn.Module:
+        """`net` (a fresh member-shaped network) loaded with member k's
+        parameters, on this module's device."""
+        net.load_state_dict({name: p[k].reshape(net.get_parameter(
+            name).shape) for name, p in self.named_parameters()})
+        return net.to(self.log_std.device)
+
+
+class PopulationActorCritic(_MemberStack):
     """K `ActorCritic`s of one shape, stacked on a leading member axis.
 
     forward(obs (K, M, obs_dim)) -> (mean (K, M, action_dim), log_std
@@ -136,14 +156,6 @@ class PopulationActorCritic(nn.Module):
                                  compute_dtype, generator=g)
                      for g in generators])
 
-    @classmethod
-    def from_members(cls, members: Sequence[ActorCritic]):
-        """Copies of `members` (ActorCritics of one shape) as one stack."""
-        net = cls.__new__(cls)
-        nn.Module.__init__(net)
-        net._stack(list(members))
-        return net
-
     def _stack(self, members):
         m0 = members[0]
         shape = (m0.obs_dim, m0.action_dim, m0.hidden, m0.compute_dtype)
@@ -165,12 +177,9 @@ class PopulationActorCritic(nn.Module):
     def member(self, k: int) -> ActorCritic:
         """A copy of member k as an `ActorCritic`, on this module's
         device."""
-        net = ActorCritic(self.obs_dim, self.action_dim, self.hidden,
-                          self.log_std_init, self.compute_dtype,
-                          generator=torch.Generator())
-        net.load_state_dict({name: p[k].reshape(net.get_parameter(
-            name).shape) for name, p in self.named_parameters()})
-        return net.to(self.log_std.device)
+        return self._member_into(ActorCritic(
+            self.obs_dim, self.action_dim, self.hidden, self.log_std_init,
+            self.compute_dtype, generator=torch.Generator()), k)
 
     def forward(self, obs: torch.Tensor):
         cd = self.compute_dtype

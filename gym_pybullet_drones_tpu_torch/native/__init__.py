@@ -1,14 +1,17 @@
 """Native (C++) host components, built with g++ and bound through ctypes.
 
 Counterpart of the JAX package's `native/__init__.py`, with the port's own
-copies of its two sources:
+copies of its three sources:
 
 - `dynamics_oracle.cpp` (`dyn_rollout`): an independent C++
   double-precision implementation of the DYN physics contract, to
   cross-check the physics from outside Python;
 - `sitl_bridge.cpp` (`SitlBridge`): the Betaflight SITL UDP bridge of
   `envs.beta_aviary.BetaAviary(use_native_bridge=True)`, one C call per
-  drone and tick.
+  drone and tick;
+- `cf_firmware_oracle.cpp` (`native.firmware_oracle`): an independent C++
+  double-precision transcription of the Crazyflie firmware's controllers,
+  the stand-in for pycffirmware that the port's firmware is held against.
 
 These are host components: g++ builds them, not nvcc.  Nothing is built at
 import time; the first use builds a source into `build/native/` next to
@@ -74,6 +77,17 @@ def _oracle_lib():
         _DP, _DP, _DP, _DP, _DP, _DP, _DP]
     lib.dyn_rollout.restype = None
     return lib
+
+
+def available() -> bool:
+    """True if g++ builds and loads the DYN oracle on this host; False, not
+    an exception, where it cannot (the JAX package's `native.available`).
+    """
+    try:
+        _oracle_lib()
+    except (RuntimeError, OSError):
+        return False
+    return True
 
 
 @functools.cache

@@ -321,6 +321,16 @@ def to_urdf(params: DroneParams, path: str) -> str:
     return path
 
 
+def asset_path(model: DroneModel | str) -> str:
+    """Path of the in-package URDF asset for `model` (cf2x/cf2p/racer): the
+    port's own copies of the JAX package's, which `from_urdf` parses back
+    to the built-in tables."""
+    import os
+    model = DroneModel(model)
+    return os.path.join(os.path.dirname(__file__), "assets",
+                        f"{model.value}.urdf")
+
+
 def obstacle_asset_path(name: str) -> str:
     """Path of an in-package obstacle URDF asset (e.g. 'architrave', 'box');
     the port's own copies of the JAX package's assets."""

@@ -14,6 +14,12 @@ stacked tensors.  So an update enqueues about the launches of one
 single-policy update, for K times the work: on a card whose trainer is
 bound by the host's launches, aggregate env-steps/s grow with K.
 
+On RGB observations the K policies are one `PopulationActorCriticCNN`
+(each trunk layer one grouped convolution over the members, each dense
+layer one batched product), and a control step is the batched step's one
+K1 launch and one render launch for all K x E envs, as `make_train` picks
+the NatureCNN and the batched step for one policy.
+
 Each member trains as an independent run would: its own noise and
 minibatch permutations, its own advantage normalisation and loss, its own
 global-norm gradient clip (optax's clip under `jax.vmap`).  The total loss
@@ -22,14 +28,14 @@ The optimizer step count, and so the learning-rate schedule, is shared.
 
 Not ported: `shard_population` and `make_sharded_population_update`
 (the population sharded over a device mesh; ROADMAP.md queue 1, item 16:
-multi-GPU is out of scope), and populations on RGB observations (item
-19).
+multi-GPU is out of scope).
 """
 from __future__ import annotations
 
 import torch
 
 from gym_pybullet_drones_tpu_torch.envs import core
+from gym_pybullet_drones_tpu_torch.models.cnn import PopulationActorCriticCNN
 from gym_pybullet_drones_tpu_torch.models.mlp import PopulationActorCritic
 from gym_pybullet_drones_tpu_torch.rl.ppo import (
     AdamState, Draws, PPOConfig, TrainState, adam_init, chain_updates,
@@ -45,11 +51,14 @@ def make_train_population(env_cfg: core.AviaryConfig, task, ppo: PPOConfig,
 
     pop_init(generator) -> TrainState: the reset of the K x E envs and a
     `PopulationActorCritic` whose member k is the `ActorCritic` seeded
-    from the k-th of K seeds drawn from `generator` in one call.  The
-    TrainState's `last_obs` is (K, E, obs_dim); its `env_state` is the
-    K x E env's (the fused carry's columns, or the flat EnvState's rows,
-    member-major); the Adam moments carry the member axis; `generator`
-    draws every member's noise and permutations.
+    from the k-th of K seeds drawn from `generator` in one call (for RGB
+    observations a `PopulationActorCriticCNN` of `ActorCriticCNN`s, one
+    drone an env, on the batched path: `env_path="fused"` raises, as
+    `fused_spec` refuses RGB).  The TrainState's `last_obs` is (K, E,
+    obs_dim); its `env_state` is the K x E env's (the fused carry's
+    columns, or the flat EnvState's rows, member-major); the Adam moments
+    carry the member axis; `generator` draws every member's noise and
+    permutations.
 
     pop_update(ts, draws=None, after_rollout=None) -> (ts, metrics): one
     update of every member (`ppo.make_update`, the update `make_train`
@@ -59,17 +68,18 @@ def make_train_population(env_cfg: core.AviaryConfig, task, ppo: PPOConfig,
     `make_train`'s update takes.  pop_update.many(ts, n) chains n
     updates, metrics (K, n).  pop_update.env_path, .num_policies, and
     .single: `make_train`'s update of one member at E envs on the same env
-    path (`member_state` gives it a member's TrainState).
+    path, built at its first call (`member_state` gives it a member's
+    TrainState).
 
     pop_evaluate(net, generator=None, num_steps=None, episodic=False) ->
     (K, E): `make_evaluate`'s, every member on its own E envs; `net` is a
-    `PopulationActorCritic` or a state_dict for the returned `network`
-    (K members, seed 0).
+    population module or a state_dict for the returned `network` (K
+    members, seed 0).
     """
-    if getattr(task, "obs", None) == ObservationType.RGB:
-        raise NotImplementedError(
-            "a population on RGB observations is not ported: ROADMAP.md "
-            "queue 1, item 19")
+    rgb = getattr(task, "obs", None) == ObservationType.RGB
+    if rgb and env_cfg.num_drones != 1:
+        raise ValueError("the CNN policy reads one drone's image: RGB "
+                         "training takes one drone an env")
     device = resolve_device(device)
     K, T, E = num_policies, ppo.rollout_steps, ppo.num_envs
     act_dim = env_cfg.num_drones * task.action_dim(env_cfg)
@@ -77,14 +87,17 @@ def make_train_population(env_cfg: core.AviaryConfig, task, ppo: PPOConfig,
     compute_dtype = compute_dtype_of(ppo)
     reset, step, env_path = make_env(env_cfg, task, K, E, device, env_path)
 
-    def fresh_network(generator: torch.Generator) -> PopulationActorCritic:
+    def fresh_network(generator: torch.Generator) -> torch.nn.Module:
         seeds = torch.randint(0, 2 ** 62, (K,), generator=generator,
                               device=generator.device).tolist()
+        generators = [torch.Generator().manual_seed(s) for s in seeds]
+        if rgb:
+            return PopulationActorCriticCNN(
+                K, act_dim, generators=generators).to(device)
         return PopulationActorCritic(
             K, obs_dim, act_dim, hidden=tuple(ppo.hidden),
             log_std_init=ppo.log_std_init, compute_dtype=compute_dtype,
-            generators=[torch.Generator().manual_seed(s) for s in seeds]
-        ).to(device)
+            generators=generators).to(device)
 
     template = fresh_network(torch.Generator(device).manual_seed(0))
     n_perm = T * E if ppo.sb3_minibatching else T
@@ -128,8 +141,18 @@ def make_train_population(env_cfg: core.AviaryConfig, task, ppo: PPOConfig,
     pop_update.many = chain_updates(pop_update)
     pop_update.env_path = env_path
     pop_update.num_policies = K
-    pop_update.single = make_train(env_cfg, task, ppo, device=device,
-                                   env_path=env_path)[1]
+    built = []
+
+    def single(ts: TrainState, draws: Draws | None = None,
+               after_rollout=None):
+        # built at its first call: its env's construction renders an RGB
+        # task's reset image, a launch no population update needs
+        if not built:
+            built.append(make_train(env_cfg, task, ppo, device=device,
+                                    env_path=env_path)[1])
+        return built[0](ts, draws, after_rollout)
+
+    pop_update.single = single
     pop_evaluate = make_evaluate(env_cfg, task, template, reset, step)
     return pop_init, pop_update, pop_evaluate, template
 

@@ -48,3 +48,20 @@ def test_dyn_step_matches_jax(model, dtype):
         assert got.dtype == dtype
         np.testing.assert_allclose(got, ref, rtol=0, atol=TOL[dtype],
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_urdf_asset_roundtrip(name):
+    """tests/test_dynamics.py:170's check on the port: its own copy of each
+    drone URDF parses back (`from_urdf(asset_path(m), m)`) to the exact
+    built-in table, and the copy is byte for byte the JAX package's."""
+    import os
+    from gym_pybullet_drones_tpu import params as JP
+    from gym_pybullet_drones_tpu_torch import params as TP
+    prm = TP.get_params(name)
+    path = TP.asset_path(prm.model)
+    assert os.path.dirname(path) == os.path.join(
+        os.path.dirname(TP.__file__), "assets")
+    assert TP.from_urdf(path, prm.model) == prm
+    with open(path, "rb") as mine, open(JP.asset_path(name), "rb") as ref:
+        assert mine.read() == ref.read()

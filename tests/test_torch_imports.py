@@ -74,6 +74,7 @@ def test_scan_sees_the_port():
                  "gym_pybullet_drones_tpu_torch/envs/cf_aviary.py",
                  "gym_pybullet_drones_tpu_torch/envs/beta_aviary.py",
                  "gym_pybullet_drones_tpu_torch/native/__init__.py",
+                 "gym_pybullet_drones_tpu_torch/native/firmware_oracle.py",
                  "gym_pybullet_drones_tpu_torch/utils/checkpoint.py",
                  "gym_pybullet_drones_tpu_torch/examples/cf.py",
                  "gym_pybullet_drones_tpu_torch/examples/beta.py",
@@ -115,18 +116,23 @@ def test_make_train_defaults_to_the_card(monkeypatch):
 
 def test_host_components_build_only_on_use():
     """Importing the host-side modules builds no native library: the g++
-    bridge and oracle are built at first use (checked in a fresh process,
-    which no earlier test in this worker has touched)."""
+    bridge and the two oracles are built at first use, and the RGB
+    population trainer builds no kernel (checked in a fresh process, which
+    no earlier test in this worker has touched)."""
     import subprocess
     import sys
     code = (
         "import gym_pybullet_drones_tpu_torch.envs, "
         "gym_pybullet_drones_tpu_torch.examples.beta, "
         "gym_pybullet_drones_tpu_torch.examples.debug, "
-        "gym_pybullet_drones_tpu_torch.utils.checkpoint\n"
-        "from gym_pybullet_drones_tpu_torch import native\n"
+        "gym_pybullet_drones_tpu_torch.utils.checkpoint, "
+        "gym_pybullet_drones_tpu_torch.rl.population, "
+        "gym_pybullet_drones_tpu_torch.models.cnn\n"
+        "from gym_pybullet_drones_tpu_torch import _build, native\n"
+        "from gym_pybullet_drones_tpu_torch.native import firmware_oracle\n"
         "print(native._bridge_lib.cache_info().currsize, "
-        "native._oracle_lib.cache_info().currsize)")
+        "native._oracle_lib.cache_info().currsize, "
+        "firmware_oracle._lib.cache_info().currsize, _build._loaded)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True, timeout=120)
-    assert out.stdout.split() == ["0", "0"]
+    assert out.stdout.split() == ["0", "0", "0", "None"]

@@ -322,11 +322,3 @@ def test_members_init_as_actor_critic():
     w = pinit(torch.Generator().manual_seed(0)).network.pi[0].weight
     assert not torch.equal(w[0], w[1])
 
-
-def test_rgb_population_raises():
-    import gym_pybullet_drones_tpu_torch.utils.enums as TE
-    _, (tcfg, ttask) = _cfg_pair()
-    with pytest.raises(NotImplementedError, match="item 19"):
-        tpop.make_train_population(
-            tcfg, dataclasses.replace(ttask, obs=TE.ObservationType.RGB),
-            _ppo(), K, device="cpu")
