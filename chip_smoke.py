@@ -54,7 +54,18 @@ card against loopback listeners on 127.0.0.2 (Python sockets) and
 127.0.0.3 (the g++-built native bridge), the port's Mellinger firmware
 against the g++-built C++ firmware oracle over a takeoff-goto-land loop,
 `examples/debug.py`'s probes, and a checkpoint of the routing trainer
-saved, restored and resumed.
+saved, restored and resumed.  Last, data-parallel training over ranks
+(`parallel/`): 2 ranks, each its own process, share the card over gloo
+(and run again over NCCL where two or more cards are visible), and one
+sharded update of each entry of the JAX package's multi-chip matrix
+(Hover DYN at 8192 envs, 4096 a rank, on K2; MultiHover under
+PYB_GND_DRAG_DW on the batched path, K5; the routing fleet's PID
+waypoints on K2) is held against the same update in this one process,
+each rank's kernel launch against its plain version at the rank's shape;
+a population of K = 4 split by member (no collective) against the
+unsharded one; a checkpoint saved by the 2 ranks and resumed at 2 ranks
+and in this process; the wall time of a sharded update and the
+all-reduces of one optimizer step.
 Any failed phase raises and the process exits non-zero.  It imports only
 torch, numpy and the port.
 
@@ -66,7 +77,8 @@ Output: one JSON object per line, in order `env`, `build`,
 `population_kernel_checks`, `ppo_bf16_parity`,
 `render_checks`, `hover256_rgb`, `ppo_rgb_update_parity`, `ppo_rgb512`,
 `population_rgb_update_parity`, `ppo_population_rgb8x512`, `reset_noise`,
-`gym_adapter`, `examples`, `routing_learn`, `host_loops`, `timing`, then
+`gym_adapter`, `examples`, `routing_learn`, `host_loops`, `sharded`,
+`timing`, then
 the `{"kernels": [...]}` summary (one entry per kernel and main-path
 shape), then the card's name and power limit as nvidia-smi prints them,
 then `{"ok": true, "device": {...}}` as the last line.
@@ -460,6 +472,47 @@ def row_tols(rows, spans):
     return atol, rtol
 
 
+def dw_tie(pos):
+    """(n, 3, b) positions -> (b,) bool: some pair of the env's drones
+    within DW_TIE_MARGIN of one height."""
+    tie = torch.zeros(pos.shape[2], dtype=torch.bool, device=pos.device)
+    for i in range(pos.shape[0]):
+        for j in range(i + 1, pos.shape[0]):
+            tie |= (pos[i, 2] - pos[j, 2]).abs() < DW_TIE_MARGIN
+    return tie
+
+
+def fused_row_tols(spec):
+    """(carry, outs) tolerances of `fused_env_step` against its plain
+    version: (ATOL, RTOL), or per-row (atol, rtol) under PYB physics or
+    PID-family actions (the embedded-PID and the contact rows' own)."""
+    from gym_pybullet_drones_tpu_torch.ops.kernel_fused import PID_FAMILY
+    from gym_pybullet_drones_tpu_torch.utils.enums import Physics
+    n, per = spec.n, (spec.carry_rows - 1) // spec.n
+    has_pid = spec.task.act in PID_FAMILY
+    pyb = spec.cfg.physics != Physics.DYN
+    if not (has_pid or pyb):
+        return (ATOL, RTOL), (ATOL, RTOL)
+    wide = lambda x, y: tuple(max(u, v) for u, v in zip(x, y))
+    st_tol = PID_STATE_TOL if has_pid else (ATOL, RTOL)
+    ob_tol = PID_OBS_TOL if has_pid else (ATOL, RTOL)
+    angv = PYB_ANGV_TOL if pyb else (ATOL, RTOL)
+    vel = PYB_VEL_TOL if pyb else (ATOL, RTOL)
+    spans, ospans = [(0, spec.out_rows, ob_tol)], []
+    for d in range(n):
+        spans += [(d * per, d * per + 16, st_tol),
+                  (d * per + 7, d * per + 10, wide(vel, st_tol)),
+                  (d * per + 13, d * per + 16, wide(angv, st_tol))]
+        if has_pid:
+            spans += [(d * per + 16, d * per + 20, PID_RPM_TOL),
+                      (d * per + 20, d * per + 29, PID_ROWS_TOL)]
+        ob = d * spec.obs_rows_per
+        ospans += [(ob + 6, ob + 9, wide(vel, ob_tol)),
+                   (ob + 9, ob + 12, wide(angv, ob_tol))]
+    return (row_tols(spec.carry_rows, spans[1:]),
+            row_tols(spec.out_rows, spans[:1] + ospans))
+
+
 def rand_state_rows(rng, b):
     """(16, b) float32 state rows around a hover, from numpy."""
     pos = rng.normal(size=(3, b)) * 0.3 + np.array([[0.0], [0.0], [1.0]])
@@ -469,6 +522,229 @@ def rand_state_rows(rng, b):
     rates = rng.normal(size=(3, b))
     ang_v = rng.normal(size=(3, b))
     return np.concatenate([pos, quat, vel, rates, ang_v]).astype(np.float32)
+
+
+# ---- the sharded phase: each rank its own process (spawned), so these
+# run at module level, where a rank finds them ----
+SHARDED_RANKS = 2
+SHARDED_CKPT = "build/chip_smoke/sharded_ckpt.pt"
+
+
+def sharded_matrix():
+    """The JAX package's multi-chip kernel matrix (`__graft_entry__.py`
+    `_kernel_matrix`), each at a width this slice trains at: name ->
+    (cfg, task, PPOConfig, env path, the path's kernel)."""
+    from gym_pybullet_drones_tpu_torch import params as P
+    from gym_pybullet_drones_tpu_torch.envs import (
+        AviaryConfig, HoverTask, MultiHoverTask, make_routing_config)
+    from gym_pybullet_drones_tpu_torch.rl import PPOConfig
+    from gym_pybullet_drones_tpu_torch.utils.enums import ActionType, Physics
+    multi = AviaryConfig(P.CF2X, 2, Physics.PYB_GND_DRAG_DW, 240, 30,
+                         init_xyzs=((0.0, 0.0, 0.15), (0.3, 0.0, 0.6)))
+    routing_cfg, routing_task = make_routing_config(num_drones=2,
+                                                    spacing=0.4)
+    return {
+        # ppo_hover8192's configuration: 4096 envs a rank, K2 branch (a)
+        "hover-dyn-rpm": (
+            AviaryConfig(P.CF2X, 1, Physics.DYN, 240, 30),
+            HoverTask(act=ActionType.RPM),
+            PPOConfig(num_envs=8192, rollout_steps=64, num_minibatches=4,
+                      update_epochs=4), "fused", "fused_env_step"),
+        # drone-coupled contact and aero, on the batched path: K5
+        "multihover-pyb-gnd-drag-dw": (
+            multi, MultiHoverTask(act=ActionType.RPM),
+            PPOConfig(num_envs=2048, rollout_steps=32, num_minibatches=4,
+                      update_epochs=2), "batched", "env_ctrl_step"),
+        # the routing fleet's PID waypoints in K2 (PYB, branch (c)+(d))
+        "routing-pid": (
+            routing_cfg, routing_task,
+            PPOConfig(num_envs=2048, rollout_steps=32, num_minibatches=4,
+                      update_epochs=2), "fused", "fused_env_step"),
+    }
+
+
+def launch_counts():
+    """Each kernel wrapper's launch count in this process."""
+    from gym_pybullet_drones_tpu_torch.ops import (
+        kernel_dyn, kernel_env, kernel_fused, kernel_pid, kernel_render)
+    return {"dyn_ctrl_step": kernel_dyn.launches,
+            "pid_dyn_ctrl_step": kernel_pid.launches,
+            "env_ctrl_step": kernel_env.launches,
+            "fused_env_step": kernel_fused.launches,
+            "render": kernel_render.launches}
+
+
+def reset_counts():
+    from gym_pybullet_drones_tpu_torch.ops import (
+        kernel_dyn, kernel_env, kernel_fused, kernel_pid, kernel_render)
+    kernel_dyn.launches = kernel_fused.launches = kernel_env.launches = 0
+    kernel_pid.launches = kernel_render.launches = 0
+
+
+def rank_kernel_check(cfg, task, env_state, kernel, gen):
+    """This rank's launch of its path's kernel on its env state (after an
+    update), held against the plain version on the same inputs, at the
+    rank-local shape: (max abs err, envs left out at a downwash tie)."""
+    from gym_pybullet_drones_tpu_torch.envs import fused_spec
+    from gym_pybullet_drones_tpu_torch.ops import kernel_env, kernel_fused
+    dev = env_state.pos.device if kernel == "env_ctrl_step" \
+        else env_state.device
+    if kernel == "fused_env_step":
+        spec = fused_spec(cfg, task)
+        b = env_state.shape[1]
+        act = 0.3 * torch.randn((spec.n * spec.act_dim, b), device=dev,
+                                generator=gen)
+        (gc, go), (rc, ro) = (
+            kernel_fused.fused_env_step(spec, env_state, act),
+            kernel_fused.fused_env_step_plain(spec, env_state, act))
+        torch.cuda.synchronize()
+        if not torch.equal(go[-2:], ro[-2:]):
+            raise AssertionError("sharded: the rank's fused_env_step flags "
+                                 "differ from the plain version's")
+        tol_c, tol_o = fused_row_tols(spec)
+        return max(check_close("sharded fused_env_step carry", gc, rc,
+                               tol=tol_c),
+                   check_close("sharded fused_env_step outs", go, ro,
+                               tol=tol_o)), 0
+    # env_ctrl_step without PID: the flat EnvState as (k, B*N) rows
+    n = cfg.num_drones
+    flat = env_state
+    s = torch.cat([flat.pos, flat.quat, flat.vel, flat.rpy_rates,
+                   flat.ang_v], dim=-1).t().contiguous()
+    rpm = (cfg.drone.hover_rpm * (1 + 0.05 * torch.randn(
+        (4, s.shape[1]), device=dev, generator=gen))).contiguous()
+    args = (None, cfg.drone, cfg.physics, n, cfg.steps_per_ctrl, cfg.pyb_dt,
+            cfg.ctrl_dt, cfg.obstacles, s, rpm, None,
+            flat.last_rpm.t().contiguous(), True, cfg.solver_iterations)
+    got = kernel_env.env_ctrl_step_rows(*args)
+    ref = kernel_env.env_ctrl_step_plain(*args)
+    torch.cuda.synchronize()
+    wide = lambda tol: tuple(max(x, y) for x, y in zip(tol, (ATOL, RTOL)))
+    vel, angv = wide(PYB_VEL_TOL), wide(PYB_ANGV_TOL)
+    tols = [row_tols(16, [(7, 10, vel), (13, 16, angv)]), (0.0, 0.0), None,
+            row_tols(12, [(6, 9, vel), (9, 12, angv)])]
+    # an env at a downwash tie is left out, and counted, if and only if
+    # the two versions differ there
+    tie = dw_tie(s[0:3].reshape(3, -1, n).permute(2, 0, 1))
+    beyond = torch.zeros_like(tie)
+    for g, r, tol in zip(got, ref, tols):
+        if g is not None:
+            atol, rtol = tol
+            beyond |= (~((g - r).abs() <= atol + rtol * r.abs())).any(
+                dim=0).reshape(-1, n).any(dim=1)
+    tied = tie & beyond
+    keep = (~tied).repeat_interleave(n)
+    err = max(check_close(f"sharded env_ctrl_step {what}", g, r, keep, tol)
+              for what, g, r, tol in zip(("state", "rpm", "pid", "obs12"),
+                                         got, ref, tols) if g is not None)
+    return err, int(tied.sum())
+
+
+def sharded_rank(mesh, names, seed):
+    """One rank of the sharded phase: for each matrix entry one sharded
+    update from `init(seed)` (the path's launches counted from 0), this
+    rank's kernel check, the state gathered; then the K = 4 population
+    over the ranks, a sharded checkpoint and the timings.  Returns numpy
+    and numbers only."""
+    from gym_pybullet_drones_tpu_torch.envs import HoverTask
+    from gym_pybullet_drones_tpu_torch.envs.core import leaves
+    from gym_pybullet_drones_tpu_torch.parallel import (
+        gather_train_state, make_sharded_update)
+    from gym_pybullet_drones_tpu_torch.rl import (
+        PPOConfig, make_train, make_train_population)
+    from gym_pybullet_drones_tpu_torch.rl.population import (
+        make_sharded_population_update, shard_population)
+    from gym_pybullet_drones_tpu_torch.utils.checkpoint import (
+        restore_checkpoint, save_checkpoint)
+    from gym_pybullet_drones_tpu_torch.utils.enums import ActionType
+    dev = mesh.device
+    np_ = lambda x: x.detach().cpu().numpy()
+    params = lambda net: {k: np_(v) for k, v in net.state_dict().items()}
+    out = {"rank": mesh.rank, "device": str(dev), "matrix": {}}
+    for name in names:
+        cfg, task, pp, path, kernel = sharded_matrix()[name]
+        init, update, _, _ = make_train(cfg, task, pp, mesh=mesh,
+                                        env_path=path)
+        update = make_sharded_update(update, mesh)
+        ts = init(torch.Generator(dev).manual_seed(seed))
+        torch.cuda.synchronize()
+        reset_counts()
+        before = mesh.collectives
+        ts, m = update(ts)
+        metrics = {k: float(v) for k, v in m.items()}
+        counts = {k: v for k, v in launch_counts().items() if v}
+        rec = {"env_path": update.env_path, "launches": counts,
+               "collectives": mesh.collectives - before,
+               "columns": mesh.env_range(pp.num_envs), "metrics": metrics}
+        rec["kernel_max_abs_err"], rec["kernel_dw_ties"] = \
+            rank_kernel_check(cfg, task, ts.env_state, kernel,
+                              torch.Generator(dev).manual_seed(
+                                  seed + 1 + mesh.rank))
+        g = gather_train_state(ts, mesh)
+        rec.update(params=params(ts.network), last_obs=np_(g.last_obs))
+        if name == "hover-dyn-rpm":
+            # a checkpoint saved at R ranks; the state it holds; then the
+            # next update, timed, and the same from the restored file
+            save_checkpoint(SHARDED_CKPT, ts, mesh=mesh)
+            rec["saved"] = {"last_obs": np_(g.last_obs),
+                            "env": [np_(x) for x in leaves(g.env_state)]}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a, am = update(ts)
+            am = {k: float(v) for k, v in am.items()}
+            torch.cuda.synchronize()
+            rec["second_update_ms"] = (time.perf_counter() - t0) * 1e3
+            b, bm = update(restore_checkpoint(
+                SHARDED_CKPT, init(torch.Generator(dev).manual_seed(
+                    seed + 1)), mesh))
+            diff = max(float((x - y).abs().max()) for x, y in zip(
+                list(a.network.state_dict().values()) + leaves(a.env_state)
+                + [a.last_obs], list(b.network.state_dict().values())
+                + leaves(b.env_state) + [b.last_obs]))
+            if diff != 0.0 or am != {k: float(v) for k, v in bm.items()}:
+                raise AssertionError(f"sharded checkpoint: the update "
+                                     f"resumed at R = {mesh.size} differs "
+                                     f"by {diff}")
+            ga = gather_train_state(a, mesh)
+            rec["resumed"] = {"metrics": am, "params": params(a.network),
+                              "last_obs": np_(ga.last_obs)}
+            # the all-reduces of one optimizer step: the two advantage
+            # statistics and the flattened gradient
+            grad = torch.zeros(sum(p.numel() for p in a.network.parameters()),
+                               device=dev)
+            one = torch.zeros(1, 1, device=dev)
+            for reps in (3, 50):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    mesh.all_reduce(one)
+                    mesh.all_reduce(one)
+                    mesh.all_reduce(grad)
+                torch.cuda.synchronize()
+            rec["allreduce_ms_per_optimizer_step"] = \
+                (time.perf_counter() - t0) / 50 * 1e3
+            rec["gradient_floats"] = grad.numel()
+        out["matrix"][name] = rec
+    # population_update_parity's configuration, K = 4 over the ranks
+    task = HoverTask(act=ActionType.RPM, episode_len_sec=0.5)
+    pp = PPOConfig(num_envs=64, rollout_steps=24, num_minibatches=2,
+                   update_epochs=2)
+    cfg = sharded_matrix()["hover-dyn-rpm"][0]
+    pinit, pupdate, _, _ = make_train_population(cfg, task, pp, 4,
+                                                 device=dev)
+    pts = shard_population(pinit(torch.Generator(dev).manual_seed(seed)),
+                           mesh)
+    pupd = make_sharded_population_update(pupdate, mesh)
+    torch.cuda.synchronize()
+    reset_counts()
+    before = mesh.collectives
+    pts, pm = pupd(pts)
+    out["population"] = {
+        "members": mesh.env_range(4), "collectives": mesh.collectives - before,
+        "launches": {k: v for k, v in launch_counts().items() if v},
+        "metrics": {k: np_(v) for k, v in pm.items()},
+        "params": params(pts.network), "last_obs": np_(pts.last_obs)}
+    return out
 
 
 def main():
@@ -662,15 +938,6 @@ def main():
     # the PID tick's share of a one-warp launch
     pid_floors["tick_ms"] = (pid_floors["one_warp_ms"]
                              - dyn_floors["one_warp_ms"])
-
-    def dw_tie(pos):
-        """(n, 3, b) positions -> (b,) bool: some pair of the env's drones
-        within DW_TIE_MARGIN of one height."""
-        tie = torch.zeros(pos.shape[2], dtype=torch.bool, device=pos.device)
-        for i in range(pos.shape[0]):
-            for j in range(i + 1, pos.shape[0]):
-                tie |= (pos[i, 2] - pos[j, 2]).abs() < DW_TIE_MARGIN
-        return tie
 
     def pyb_ops(cfg_physics, n, obstacles, sweeps=4, pid=False,
                 euler_calls=1):
@@ -1006,26 +1273,7 @@ def main():
                 > PID_OBS_TOL[0] + PID_OBS_TOL[1] * ro[rows].abs())
             tied |= nn_tie(sel) & beyond(ext).any(dim=0)
             tied |= (margin <= FLAG_MARGIN) & beyond(ro_base)
-        tol_c = tol_o = (ATOL, RTOL)
-        if has_pid or pyb:
-            wide = lambda x, y: tuple(max(u, v) for u, v in zip(x, y))
-            st_tol = PID_STATE_TOL if has_pid else (ATOL, RTOL)
-            ob_tol = PID_OBS_TOL if has_pid else (ATOL, RTOL)
-            angv = PYB_ANGV_TOL if pyb else (ATOL, RTOL)
-            vel = PYB_VEL_TOL if pyb else (ATOL, RTOL)
-            spans, ospans = [(0, spec.out_rows, ob_tol)], []
-            for d in range(n):
-                spans += [(d * per, d * per + 16, st_tol),
-                          (d * per + 7, d * per + 10, wide(vel, st_tol)),
-                          (d * per + 13, d * per + 16, wide(angv, st_tol))]
-                if has_pid:
-                    spans += [(d * per + 16, d * per + 20, PID_RPM_TOL),
-                              (d * per + 20, d * per + 29, PID_ROWS_TOL)]
-                ob = d * spec.obs_rows_per
-                ospans += [(ob + 6, ob + 9, wide(vel, ob_tol)),
-                           (ob + 9, ob + 12, wide(angv, ob_tol))]
-            tol_c = row_tols(spec.carry_rows, spans[1:])
-            tol_o = row_tols(spec.out_rows, spans[:1] + ospans)
+        tol_c, tol_o = fused_row_tols(spec)
         differs = beyond_envs([(gc, rc_, tol_c), (go, ro, tol_o)], 1)
         if dw and n > 1:
             # an env at a downwash tie is left out, if and only if the two
@@ -1424,11 +1672,6 @@ def main():
     emit(routing)
     if kernel_dyn.launches != 0:
         raise AssertionError("routing went through dyn_ctrl_step")
-
-    def reset_counts():
-        kernel_dyn.launches = kernel_fused.launches = 0
-        kernel_pid.launches = kernel_env.launches = 0
-        kernel_render.launches = 0
 
     def zero_action_episode(name, cfg, task, b, steps, expect):
         """Zero actions through the fused path: which control steps
@@ -2413,13 +2656,6 @@ def main():
     def on(device, state):
         return map_leaves(lambda x: x.to(device), state)
 
-    def launch_counts():
-        return {"dyn_ctrl_step": kernel_dyn.launches,
-                "pid_dyn_ctrl_step": kernel_pid.launches,
-                "env_ctrl_step": kernel_env.launches,
-                "fused_env_step": kernel_fused.launches,
-                "render": kernel_render.launches}
-
     def stepped_rows(flat, n):
         """Per drone, the obs12 rows `flag_margin` reads, from a flat state
         that was stepped and not reset."""
@@ -3215,6 +3451,191 @@ def main():
         # the same kernel at the same shape, timed above
         summary[(key[0], name)] = dict(summary[key], timed_as=key[1])
 
+    # ---- sharded: data-parallel training over ranks (parallel/), the
+    # JAX package's multi-chip matrix; each rank its own process ----
+    from gym_pybullet_drones_tpu_torch.parallel.launch import run_ranks
+    from gym_pybullet_drones_tpu_torch.utils.checkpoint import (
+        restore_checkpoint as restore_ckpt)
+    t_sharded = time.perf_counter()
+    matrix = sharded_matrix()
+    np_ = lambda x: x.detach().cpu().numpy()
+    reference = {}
+    for name, (scfg, stask, spp, spath, _) in matrix.items():
+        sinit, supdate, _, _ = make_train(scfg, stask, spp, device=dev,
+                                          env_path=spath)
+        sts, sm = supdate(sinit(torch.Generator(dev).manual_seed(SEED)))
+        reference[name] = {
+            "params": {k: np_(v) for k, v in sts.network.state_dict().items()},
+            "last_obs": np_(sts.last_obs),
+            "metrics": {k: float(v) for k, v in sm.items()}}
+        if name == "hover-dyn-rpm":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            # closed as the ranks' windows are: the metrics read back
+            _, sm2 = supdate(sts)
+            sm2 = {k: float(v) for k, v in sm2.items()}
+            torch.cuda.synchronize()
+            single_update_ms = (time.perf_counter() - t0) * 1e3
+            hover_single = (sinit, supdate)
+    K4 = 4
+    pinit, pupd, _, _ = make_train_population(
+        matrix["hover-dyn-rpm"][0], HoverTask(act=ActionType.RPM,
+                                              episode_len_sec=0.5),
+        PPOConfig(num_envs=64, rollout_steps=24, num_minibatches=2,
+                  update_epochs=2), K4, device=dev)
+    pop_ref, pop_ref_m = pupd(pinit(torch.Generator(dev).manual_seed(SEED)))
+    pop_ref_params = {k: np_(v) for k, v in
+                      pop_ref.network.state_dict().items()}
+
+    def close_np(a, b, tol):
+        return float(np.abs(a - b).max()) if np.all(
+            np.abs(a - b) <= tol[0] + tol[1] * np.abs(b)) else None
+
+    def hold_leg(backend, ranks):
+        """Every rank's sharded updates against the single-process ones,
+        its kernel checks, the population against the unsharded one."""
+        leg = {"matrix": {}}
+        for name, (_, _, spp, spath, kernel) in matrix.items():
+            ref = reference[name]
+            recs = [r["matrix"][name] for r in ranks]
+            steps = spp.update_epochs * spp.num_minibatches
+            for r in recs:
+                if r["env_path"] != spath or r["launches"] != {
+                        kernel: spp.rollout_steps} \
+                        or r["collectives"] != 3 * steps + 1:
+                    raise AssertionError(
+                        f"sharded {backend} {name}: path {r['env_path']}, "
+                        f"launches {r['launches']}, collectives "
+                        f"{r['collectives']}")
+                for k, v in recs[0]["params"].items():
+                    if not np.array_equal(r["params"][k], v):
+                        raise AssertionError(f"sharded {backend} {name}: "
+                                             f"{k} differs across ranks")
+            param_err = max(float(np.abs(v - ref["params"][k]).max())
+                            for k, v in recs[0]["params"].items())
+            obs_err = close_np(recs[0]["last_obs"], ref["last_obs"],
+                               (ATOL, 0.0))
+            metric_err = {k: close_np(np.float64(v), ref["metrics"][k],
+                                      PPO_METRIC_TOL)
+                          for k, v in recs[0]["metrics"].items()}
+            if param_err > PPO_PARAM_ATOL or obs_err is None \
+                    or None in metric_err.values():
+                raise AssertionError(
+                    f"sharded {backend} {name}: weights {param_err}, last "
+                    f"obs {obs_err}, metrics {metric_err} against one "
+                    "process")
+            leg["matrix"][name] = {
+                "num_envs": spp.num_envs, "envs_a_rank":
+                    spp.num_envs // SHARDED_RANKS,
+                "rollout_steps": spp.rollout_steps, "env_path": spath,
+                "launches_each_rank": recs[0]["launches"],
+                "collectives_each_rank": recs[0]["collectives"],
+                "param_max_abs_err": param_err,
+                "last_obs_max_abs_err": obs_err,
+                "metric_abs_err": metric_err,
+                "rank_kernel_max_abs_err": [r["kernel_max_abs_err"]
+                                            for r in recs],
+                "rank_kernel_dw_ties": [r["kernel_dw_ties"] for r in recs]}
+        pops = [r["population"] for r in ranks]
+        pop_err = 0.0
+        for r in pops:
+            lo, hi = r["members"]
+            if r["collectives"] != 0 or r["launches"] != {
+                    "fused_env_step": 24}:
+                raise AssertionError(f"sharded {backend} population: "
+                                     f"{r['collectives']} collectives, "
+                                     f"launches {r['launches']}")
+            param_err = max(float(np.abs(v - pop_ref_params[k][lo:hi]).max())
+                            for k, v in r["params"].items())
+            errs = [close_np(r["last_obs"], np_(pop_ref.last_obs[lo:hi]),
+                             (ATOL, 0.0))] + [
+                close_np(v, np_(pop_ref_m[k][lo:hi]), PPO_METRIC_TOL)
+                for k, v in r["metrics"].items()]
+            if None in errs or param_err > PPO_PARAM_ATOL:
+                raise AssertionError(f"sharded {backend} population: "
+                                     f"members {lo}-{hi}: weights "
+                                     f"{param_err}, obs and metrics {errs}")
+            pop_err = max(pop_err, param_err, *errs)
+        leg["population"] = {"members": K4, "ranks": SHARDED_RANKS,
+                             "collectives": 0,
+                             "launches_each_rank": pops[0]["launches"],
+                             "max_abs_err": pop_err}
+        hover = [r["matrix"]["hover-dyn-rpm"] for r in ranks]
+        leg["timing"] = {
+            "sharded_update_ms_each_rank": [h["second_update_ms"]
+                                            for h in hover],
+            "allreduce_ms_per_optimizer_step_each_rank": [
+                h["allreduce_ms_per_optimizer_step"] for h in hover],
+            "gradient_floats": hover[0]["gradient_floats"]}
+        return leg
+
+    gloo = run_ranks(sharded_rank, SHARDED_RANKS, "gloo",
+                     args=(list(matrix), SEED), timeout_s=900)
+    sharded = {"phase": "sharded", "gpu": card, "ranks": SHARDED_RANKS,
+               "gloo": hold_leg("gloo", gloo)}
+    # the checkpoint the ranks saved, resumed in this one process (R = 1):
+    # the state the ranks gathered bit for bit, then the same update
+    sinit, supdate = hover_single
+    r1_ts = restore_ckpt(SHARDED_CKPT,
+                         sinit(torch.Generator(dev).manual_seed(SEED + 2)))
+    saved = gloo[0]["matrix"]["hover-dyn-rpm"]["saved"]
+    if not (np.array_equal(np_(r1_ts.last_obs), saved["last_obs"]) and all(
+            np.array_equal(np_(x), y)
+            for x, y in zip(leaves(r1_ts.env_state), saved["env"]))):
+        raise AssertionError("sharded checkpoint: R = 1 restores another "
+                             "state than the ranks saved")
+    r1_ts, om = supdate(r1_ts)
+    resumed = gloo[0]["matrix"]["hover-dyn-rpm"]["resumed"]
+    r1_err = max(float(np.abs(np_(v) - resumed["params"][k]).max())
+                 for k, v in r1_ts.network.state_dict().items())
+    r1_obs = close_np(np_(r1_ts.last_obs), resumed["last_obs"], (ATOL, 0.0))
+    r1_metric = {k: close_np(np.float64(float(v)), resumed["metrics"][k],
+                             PPO_METRIC_TOL) for k, v in om.items()}
+    if r1_err > PPO_PARAM_ATOL or r1_obs is None \
+            or None in r1_metric.values():
+        raise AssertionError(f"sharded checkpoint: resumed at R = 1, the "
+                             f"update is {r1_err} / {r1_obs} off R = 2's")
+    sharded["checkpoint"] = {
+        "saved_at": SHARDED_RANKS, "resumed_at": [SHARDED_RANKS, 1],
+        "r2_resume_bitwise_equal": True, "r1_restore_bitwise_equal": True,
+        "r1_vs_r2_update_param_max_abs_err": r1_err,
+        "r1_vs_r2_last_obs_max_abs_err": r1_obs,
+        "r1_vs_r2_metric_abs_err": r1_metric}
+    sharded["timing_single_process_update_ms"] = single_update_ms
+    if torch.cuda.device_count() >= 2:
+        sharded["nccl"] = hold_leg("nccl", run_ranks(
+            sharded_rank, SHARDED_RANKS, "nccl", args=(list(matrix), SEED),
+            timeout_s=900))
+    else:
+        sharded["nccl"] = (f"not run: {torch.cuda.device_count()} card "
+                           "visible")
+    # the kernels at the ranks' shapes, timed here against their plain
+    # versions (4096 hover envs a rank is hover4096's shape, timed above)
+    env_case(Physics.PYB_GND_DRAG_DW, 2, False, True, P.CF2X, 1024,
+             timed="sharded2_multihover2x1024", obstacles=())
+    rcfg2, rtask2 = matrix["routing-pid"][:2]
+    fused_case("sharded2_routing2x1024", rcfg2, rtask2, 1024)
+    summary[("fused_env_step", "sharded2_hover4096")] = dict(
+        summary[("fused_env_step", "hover4096")], timed_as="hover4096")
+    sharded_counts = {}
+    for name, config in (("hover-dyn-rpm", "sharded2_hover4096"),
+                         ("multihover-pyb-gnd-drag-dw",
+                          "sharded2_multihover2x1024"),
+                         ("routing-pid", "sharded2_routing2x1024")):
+        kernel = matrix[name][4]
+        sharded_counts[config] = {kernel: sum(
+            r["matrix"][name]["launches"][kernel] for r in gloo)}
+        summary[(kernel, config)]["max_abs_err"] = max(
+            summary[(kernel, config)]["max_abs_err"],
+            *sharded["gloo"]["matrix"][name]["rank_kernel_max_abs_err"])
+    sharded["launches"] = sharded_counts
+    sharded["seconds"] = time.perf_counter() - t_sharded
+    sharded["note"] = ("host clock; each rank a process on the card, "
+                       "gloo sharing it; one sharded update of every "
+                       "matrix entry against one process's, launches "
+                       "counted from 0 in each rank; no speed claim")
+    emit(sharded)
+
     # ---- timing: env-steps/s, host readback inside the window ----
     def steps_per_s(cfg, task, b, steps, scale=0.1):
         acts = scale * torch.randn(
@@ -3291,7 +3712,8 @@ def main():
                            ("gym_adapter_images", adapter_counts),
                            ("swarm4096x4", swarm_counts),
                            ("routing3x128_pyb_learn", rr_learn_counts),
-                           ("routing3x64_pyb_eval", rr_eval_counts)):
+                           ("routing3x64_pyb_eval", rr_eval_counts),
+                           *sharded_counts.items()):
         for name in counts:
             rec = summary[(name, config)]
             kernels.append({

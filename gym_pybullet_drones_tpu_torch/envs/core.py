@@ -260,6 +260,12 @@ def reset_draws(generator: torch.Generator, shape: tuple,
     explicit CPU `generator` and copied to `device` in one copy.  The same
     generator state gives the same numbers on every device."""
     u = torch.rand(tuple(shape) + (9,), generator=generator) * 2.0 - 1.0
+    return host_to_device(u, device)
+
+
+def host_to_device(u: torch.Tensor, device=None) -> torch.Tensor:
+    """Host tensor `u` on `device` in one copy (pinned and asynchronous
+    to a card)."""
     device = resolve_device(device)
     if device.type == "cuda":
         return u.pin_memory().to(device, non_blocking=True)

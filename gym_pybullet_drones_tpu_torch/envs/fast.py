@@ -49,21 +49,28 @@ class ResetNoise:
     `seed`, BLOCK draws at a time, each block copied to `device` in one
     copy; so one seed gives the same draws on the CPU and on the card.  A
     given env's draws depend on the batch's layout, where the JAX
-    package's per-env keys do not."""
+    package's per-env keys do not.  So the stream draws the GLOBAL
+    batch's block and keeps `rows`, its (lo, hi) of the leading axis (by
+    default all of it): a rank of a mesh keeps its envs' rows, and they
+    get the draws they get in one process."""
 
     BLOCK = 64
 
-    def __init__(self, seed: int, shape: tuple, device):
+    def __init__(self, seed: int, shape: tuple, device, rows=None):
         self.generator = torch.Generator().manual_seed(int(seed))
         self.shape, self.device = tuple(shape), device
+        self.rows = (0, self.shape[0]) if rows is None else tuple(rows)
         self.block, self.index = None, 0
 
     def next(self) -> torch.Tensor:
-        """The next draw, `shape` + (9,) on the device."""
+        """The next draw, `rows` of `shape` + (9,) on the device."""
         k = self.index % self.BLOCK
         if k == 0:
-            self.block = core.reset_draws(
-                self.generator, (self.BLOCK,) + self.shape, self.device)
+            lo, hi = self.rows
+            block = core.reset_draws(
+                self.generator, (self.BLOCK,) + self.shape, "cpu")
+            self.block = core.host_to_device(
+                block[:, lo:hi].contiguous(), self.device)
         self.index += 1
         return self.block[k]
 
@@ -75,14 +82,19 @@ class ResetNoise:
                 "block": None if self.block is None else self.block.clone()}
 
     def set_state(self, state: dict) -> None:
-        """Continue from `get_state()`'s position: the same draws follow."""
+        """Continue from `get_state()`'s position: the same draws follow.
+        The block is this stream's rows of it."""
         if tuple(state["shape"]) != self.shape:
             raise ValueError(f"a reset-noise stream of shape "
                              f"{tuple(state['shape'])} does not fit "
                              f"{self.shape}")
+        block = state["block"]
+        rows = self.rows[1] - self.rows[0]
+        if block is not None and block.shape[1] != rows:
+            raise ValueError(f"a reset-noise block of {block.shape[1]} rows "
+                             f"does not fit a stream of {rows}")
         self.index = int(state["index"])
         self.generator.set_state(state["generator"].cpu())
-        block = state["block"]
         self.block = None if block is None else block.to(self.device).clone()
 
 
@@ -99,9 +111,21 @@ def _flat_reset(cfg, task, num_envs: int, device):
     return core.map_leaves(tile, s1), obs1.expand((num_envs,) + obs1.shape)
 
 
+def _rank_envs(num_envs: int, device, mesh):
+    """(device, this rank's envs, its (lo, hi) env columns or None): the
+    whole batch on `device`, or under `mesh` the rank's columns of the
+    global `num_envs` on the mesh's device."""
+    if mesh is None:
+        return resolve_device(device), num_envs, None
+    if device is not None and torch.device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+    lo, hi = mesh.env_range(num_envs)
+    return mesh.device, hi - lo, (lo, hi)
+
+
 def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
                       autoreset: bool = True, obs_layout: str = "drone",
-                      device=None):
+                      device=None, mesh=None):
     """Build step_fn over batched EnvState with a flattened (B*N, ...) carry.
 
     Returns (reset_fn, step_fn); reset_fn(seed) -> (state, obs);
@@ -127,11 +151,20 @@ def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
 
     obs_layout: "drone" -> obs (B, N, D) (reference per-drone layout);
     "flat" -> obs (B, N*D).
+
+    mesh (`parallel.Mesh`): `num_envs` is the global batch, and this
+    rank's reset and step cover its columns of it, B = num_envs /
+    mesh.size envs on the mesh's device (refused where the ranks cannot
+    split it evenly).  Each control step is this rank's one launch; no
+    collective.  A task with reset noise takes the rank's rows of the
+    GLOBAL batch's draws, so its envs reset as they do in one process.
     """
     if obs_layout not in ("drone", "flat"):
         raise ValueError(f"unknown obs_layout {obs_layout!r}")
-    device = resolve_device(device)
     n = cfg.num_drones
+    device, num_envs, cols = _rank_envs(num_envs, device, mesh)
+    rows = None if cols is None else (cols[0] * n, cols[1] * n)
+    global_bn = (num_envs if cols is None else mesh.size * num_envs) * n
     bn = num_envs * n
     buf_len, act_dim = task.action_buffer_shape(cfg)
     # ask the kernel for the 12-row obs block when the task consumes it (KIN;
@@ -146,7 +179,7 @@ def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
     init_flat, init_obs = _flat_reset(cfg, task, num_envs, device)
     init_obs_flat = init_obs.reshape(bn, -1)               # (B*N, D)
     noisy = core.has_reset_noise(task)
-    noise = ResetNoise(0, (bn,), device) if noisy else None
+    noise = ResetNoise(0, (global_bn,), device, rows) if noisy else None
 
     def _finalize_obs(obs):
         """Flat-hook obs (B*N, D) -> the requested output layout."""
@@ -166,7 +199,7 @@ def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
         # deterministic tasks: the seed is accepted for API parity, unused
         nonlocal noise
         if noisy:
-            noise = ResetNoise(seed, (bn,), device)
+            noise = ResetNoise(seed, (global_bn,), device, rows)
         flat, obs = _reset_state()
         return flat, _finalize_obs(obs)
 
@@ -282,7 +315,7 @@ def fused_spec(cfg: core.AviaryConfig, task) -> kernel_fused.FusedSpec:
 
 
 def make_fused_rollout(cfg: core.AviaryConfig, task, num_envs: int,
-                       obs_layout: str = "flat", device=None):
+                       obs_layout: str = "flat", device=None, mesh=None):
     """Fully-fused rollout stepping: ONE kernel launch and a ONE-buffer
     carry per control step (ops/kernel_fused.py) — physics, action buffer,
     task reward/termination, obs assembly, and auto-reset all in-kernel.
@@ -296,11 +329,18 @@ def make_fused_rollout(cfg: core.AviaryConfig, task, num_envs: int,
     kernel's own layout; the first two are transposed views, not copies.
 
     Eligibility is `fused_spec`'s; fallback is NOT automatic.
+
+    mesh (`parallel.Mesh`): `num_envs` is the global batch, and this
+    rank's carry holds its columns of it, B = num_envs / mesh.size envs
+    on the mesh's device (refused where the ranks cannot split it
+    evenly).  The kernel runs one thread an (env, drone), so it asks for
+    no other divisor (the JAX package's 128 x mesh.size is the TPU's lane
+    tile).
     """
     if obs_layout not in ("flat", "drone", "rows"):
         raise ValueError(f"unknown obs_layout {obs_layout!r}")
     spec = fused_spec(cfg, task)
-    device = resolve_device(device)
+    device, num_envs, _ = _rank_envs(num_envs, device, mesh)
     n, act_dim, buf_rows = spec.n, spec.act_dim, spec.buf_rows
     bn = num_envs * n
     obs_dim = spec.obs_rows_per

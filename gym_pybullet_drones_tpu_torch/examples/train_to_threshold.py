@@ -6,6 +6,7 @@
     ... --rgb --num_envs 512 --rollout_steps 32 --epochs 4 --lr 1e-4 --anneal
     ... --routing --num_envs 128 --rollout_steps 64 --epochs 10 --lr 3e-4 \
         --anneal --gamma 0.99 --log_std_init -1 --hidden 128
+    ... --sharded 8 --backend gloo --num_envs 128 --anneal
 
 Counterpart of the JAX package's `scripts/train_to_threshold.py` for Hover
 (ONE_D_RPM, target 474.15), MultiHover (2 drones, target 949.5), both on
@@ -22,8 +23,15 @@ episodes of 16 s (`rl.ppo.make_arrival_rate`; the reference defines no
 routing threshold).  `platform` is "gpu" and `device` the card's name and
 power limit as nvidia-smi prints them ("cpu" with `--device cpu`).
 
-`--sharded` raises NotImplementedError: sharding is not ported (ROADMAP.md
-queue 1, item 16).
+`--sharded N` trains data-parallel over N ranks, each its own process
+(spawned; `parallel.launch.run_ranks`): rank r steps env columns
+[r*E/N, (r+1)*E/N) of the global batch, the gradient of every optimizer
+step is all-reduced (`make_train(..., mesh=)`), each rank evaluates its
+columns and the returns are gathered, so that every rank stops at the
+same update; the routing evaluation runs on rank 0, which broadcasts the
+rate.  `--backend nccl` (the default) takes one card a rank and refuses
+fewer cards than ranks; `--backend gloo` lets the ranks share a card.
+Rank 0 writes the JSON, with `sharded_devices` (N) and `backend`.
 """
 import argparse
 import json
@@ -34,9 +42,13 @@ import time
 
 import torch
 
-from gym_pybullet_drones_tpu_torch import params as P
+from gym_pybullet_drones_tpu_torch import _build, params as P
 from gym_pybullet_drones_tpu_torch.envs import (
     AviaryConfig, HoverTask, MultiHoverTask, make_routing_config)
+from gym_pybullet_drones_tpu_torch.parallel import make_sharded_update
+from gym_pybullet_drones_tpu_torch.parallel.distributed import (
+    check_backend)
+from gym_pybullet_drones_tpu_torch.parallel.launch import run_ranks
 from gym_pybullet_drones_tpu_torch.rl import (
     PPOConfig, make_arrival_rate, make_train)
 from gym_pybullet_drones_tpu_torch.utils.device import resolve_device
@@ -77,14 +89,29 @@ def main(argv=None):
     ap.add_argument("--out", default=None,
                     help="output path (default: "
                          "artifacts/torch_<task>_seed<seed>.json)")
-    ap.add_argument("--sharded", type=int, default=0, metavar="N")
+    ap.add_argument("--sharded", type=int, default=0, metavar="N",
+                    help="train over N ranks, the env batch split")
+    ap.add_argument("--backend", default="nccl", choices=("nccl", "gloo"),
+                    help="--sharded's process group (gloo: ranks may "
+                         "share a card)")
     args = ap.parse_args(argv)
-    if args.sharded:
-        raise NotImplementedError(
-            "--sharded waits for ROADMAP.md queue 1, item 16 (sharding: not "
-            "ported)")
-    device = resolve_device(args.device)
+    if not args.sharded:
+        return train(args, resolve_device(args.device))
+    check_backend(args.backend, args.sharded)
+    if args.device is None or torch.device(args.device).type == "cuda":
+        _build.build()        # once here, not in every rank
+    return run_ranks(_rank, args.sharded, args.backend, args=(args,),
+                     device=args.device)[0]
 
+
+def _rank(mesh, args):
+    return train(args, mesh.device, mesh)
+
+
+def train(args, device: torch.device, mesh=None) -> int:
+    """The run on `device`, or this rank's part of it under `mesh`; 0 if
+    it reached its target.  Only rank 0 writes and prints."""
+    lead = mesh is None or mesh.rank == 0
     if args.routing:
         cfg, task = make_routing_config(num_drones=3, spacing=0.4)
         name, target, physics = "routing", 0.9, cfg.physics
@@ -109,15 +136,25 @@ def main(argv=None):
                     anneal_lr=args.anneal, gamma=args.gamma, lr=args.lr,
                     log_std_init=args.log_std_init,
                     hidden=(args.hidden, args.hidden))
-    init, update, evaluate, _ = make_train(cfg, task, ppo, device=device)
+    init, update, evaluate, _ = make_train(cfg, task, ppo, device=device,
+                                           mesh=mesh)
     ts = init(torch.Generator(device).manual_seed(args.seed))
+    if mesh is not None:
+        update = make_sharded_update(update, mesh)
     if args.routing:
         # success metric: the share of 64 deterministic episodes in which
-        # EVERY drone reaches its destination within the 16 s episode
+        # EVERY drone reaches its destination within the 16 s episode;
+        # under a mesh rank 0 evaluates and broadcasts the rate
         arrival_rate = make_arrival_rate(
             cfg, task, 64, int(task.episode_len_sec * cfg.ctrl_freq),
-            device)
-        eval_fn = lambda net: float(arrival_rate(net)[0])
+            device) if lead else None
+
+        def eval_fn(net):
+            rate = arrival_rate(net)[0] if lead \
+                else torch.zeros((), device=device)
+            if mesh is not None:
+                mesh.broadcast(rate)
+            return float(rate)
     else:
         # reference episode accounting (QUIRKS.md #11): the default step
         # count episode_len_sec * ctrl_freq + 2, stopped at the first
@@ -137,7 +174,7 @@ def main(argv=None):
             "train_reward": float(metrics["mean_reward"]),
             "wall_s": round(time.time() - start, 1),
         })
-        if u % 5 == 0 or mean_ret >= target:
+        if lead and (u % 5 == 0 or mean_ret >= target):
             print(f"[{name} seed {args.seed}] update {u} "
                   f"steps={(u + 1) * ppo.batch_size} eval={mean_ret:.2f} "
                   f"({time.time() - start:.0f}s)", flush=True)
@@ -162,6 +199,8 @@ def main(argv=None):
              "defines none)") if args.routing else
             "gym_pybullet_drones/examples/learn.py:78-83",
         "env_path": update.env_path,
+        "sharded_devices": None if mesh is None else mesh.size,
+        "backend": None if mesh is None else mesh.backend,
         "reached": reached_at is not None,
         "reached_at_update": reached_at,
         "reached_at_env_steps":
@@ -176,14 +215,15 @@ def main(argv=None):
                 "hidden": list(ppo.hidden)},
         "curve": curve,
     }
-    path = args.out or os.path.join(
-        os.path.dirname(__file__), "..", "..", "artifacts",
-        f"torch_{name}_seed{args.seed}.json")
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path, "w") as f:
-        json.dump(out, f, indent=1)
-    print(f"[RESULT] {name}: reached={out['reached']} "
-          f"at update {reached_at} -> {path}", flush=True)
+    if lead:
+        path = args.out or os.path.join(
+            os.path.dirname(__file__), "..", "..", "artifacts",
+            f"torch_{name}_seed{args.seed}.json")
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(out, f, indent=1)
+        print(f"[RESULT] {name}: reached={out['reached']} "
+              f"at update {reached_at} -> {path}", flush=True)
     return 0 if out["reached"] else 1
 
 

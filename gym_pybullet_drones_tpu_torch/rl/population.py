@@ -26,9 +26,11 @@ global-norm gradient clip (optax's clip under `jax.vmap`).  The total loss
 is the SUM of the members' losses, so each member's gradient is its own.
 The optimizer step count, and so the learning-rate schedule, is shared.
 
-Not ported: `shard_population` and `make_sharded_population_update`
-(the population sharded over a device mesh; ROADMAP.md queue 1, item 16:
-multi-GPU is out of scope).
+Over the ranks of a `parallel.Mesh` the members split with ZERO
+collectives (`shard_population`, `make_sharded_population_update`): rank
+r trains members [r*K/R, (r+1)*K/R) on its own device, on its columns of
+the K x E env, with its members' slices of the global population draw,
+so each member trains as it does in one process.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ import torch
 from gym_pybullet_drones_tpu_torch.envs import core
 from gym_pybullet_drones_tpu_torch.models.cnn import PopulationActorCriticCNN
 from gym_pybullet_drones_tpu_torch.models.mlp import PopulationActorCritic
+from gym_pybullet_drones_tpu_torch.parallel.mesh import shard_train_state
 from gym_pybullet_drones_tpu_torch.rl.ppo import (
     AdamState, Draws, PPOConfig, TrainState, adam_init, chain_updates,
     compute_dtype_of, make_env, make_evaluate, make_train, make_update)
@@ -69,7 +72,7 @@ def make_train_population(env_cfg: core.AviaryConfig, task, ppo: PPOConfig,
     updates, metrics (K, n).  pop_update.env_path, .num_policies, and
     .single: `make_train`'s update of one member at E envs on the same env
     path, built at its first call (`member_state` gives it a member's
-    TrainState).
+    TrainState); .sharded(mesh): `make_sharded_population_update`'s.
 
     pop_evaluate(net, generator=None, num_steps=None, episodic=False) ->
     (K, E): `make_evaluate`'s, every member on its own E envs; `net` is a
@@ -123,24 +126,43 @@ def make_train_population(env_cfg: core.AviaryConfig, task, ppo: PPOConfig,
                            dtype=torch.float64).argsort(dim=-1)
         return Draws(noise, perms)
 
-    run = make_update(ppo, step, K, lambda x: x)
+    def members_update(k: int, step, members: slice):
+        """The update of `k` members on `step`, taking `members` of the
+        population's draws."""
+        run = make_update(ppo, step, k, lambda x: x)
 
-    def pop_update(ts: TrainState, draws: Draws | None = None,
+        def update(ts: TrainState, draws: Draws | None = None,
                    after_rollout=None):
-        if draws is None:
-            draws = draws_of(ts.generator)
-        if ts.reset_noise is not None:
-            step.use_reset_noise(ts.reset_noise)
-        (opt_state, env_state, obs), metrics = run(
-            ts.network, ts.opt_state, ts.env_state, ts.last_obs, draws,
-            after_rollout)
-        return ts._replace(opt_state=opt_state, env_state=env_state,
-                           last_obs=obs,
-                           update_idx=ts.update_idx + 1), metrics
+            if draws is None:
+                draws = draws_of(ts.generator)
+            if ts.reset_noise is not None:
+                step.use_reset_noise(ts.reset_noise)
+            (opt_state, env_state, obs), metrics = run(
+                ts.network, ts.opt_state, ts.env_state, ts.last_obs,
+                Draws(draws.noise[members], draws.perms[members]),
+                after_rollout)
+            return ts._replace(opt_state=opt_state, env_state=env_state,
+                               last_obs=obs,
+                               update_idx=ts.update_idx + 1), metrics
+        update.many = chain_updates(update)
+        update.env_path = env_path
+        update.num_policies = K
+        return update
 
-    pop_update.many = chain_updates(pop_update)
-    pop_update.env_path = env_path
-    pop_update.num_policies = K
+    pop_update = members_update(K, step, slice(None))
+
+    def sharded(mesh):
+        # this rank's members, on its columns of the K x E env
+        check_members(K, mesh)
+        k = K // mesh.size
+        _, local_step, _ = make_env(env_cfg, task, k, E, mesh.device,
+                                    env_path, mesh)
+        update = members_update(
+            k, local_step, slice(mesh.rank * k, (mesh.rank + 1) * k))
+        update.mesh = mesh
+        return update
+
+    pop_update.sharded = sharded
     built = []
 
     def single(ts: TrainState, draws: Draws | None = None,
@@ -155,6 +177,38 @@ def make_train_population(env_cfg: core.AviaryConfig, task, ppo: PPOConfig,
     pop_update.single = single
     pop_evaluate = make_evaluate(env_cfg, task, template, reset, step)
     return pop_init, pop_update, pop_evaluate, template
+
+
+def check_members(num_policies: int, mesh) -> None:
+    if num_policies % mesh.size:
+        raise ValueError(
+            f"num_policies={num_policies} must divide the mesh "
+            f"size {mesh.size}")
+
+
+def shard_population(ts: TrainState, mesh) -> TrainState:
+    """This rank's members of a population TrainState (from `pop_init`,
+    K = `ts.network.num_members` divisible by the mesh's size): their
+    network, Adam moments, env columns, observations and rows of the
+    reset-noise stream, on the mesh's device; the generator replicated."""
+    net = ts.network
+    check_members(net.num_members, mesh)
+    lo, hi = mesh.env_range(net.num_members)
+    local = shard_train_state(ts, mesh)
+    pick = lambda moments: [m[lo:hi].clone() for m in moments]
+    return local._replace(
+        network=type(net).from_members(
+            [net.member(k) for k in range(lo, hi)]).to(mesh.device),
+        opt_state=AdamState(ts.opt_state.count, pick(local.opt_state.mu),
+                            pick(local.opt_state.nu)))
+
+
+def make_sharded_population_update(pop_update, mesh):
+    """The population update of this rank's members (`shard_population`'s
+    TrainState): K / R members on its columns of the K x E env, each on
+    its slice of the global population draw.  No collective: the members
+    never exchange anything.  K must divide evenly over the ranks."""
+    return pop_update.sharded(mesh)
 
 
 def member_state(ts: TrainState, k: int) -> TrainState:

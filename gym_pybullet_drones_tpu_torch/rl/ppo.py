@@ -32,8 +32,13 @@ case K = 1, the population trainer (`rl/population.py`) stacks K
 policies, and both run the same update (`make_update`) and evaluation
 (`make_evaluate`).
 
-The JAX package's `mesh` and `use_pallas` arguments are TPU-only and are
-not ported (ROADMAP.md queue 1, item 16).
+`make_train(..., mesh=)` trains data-parallel over the ranks of a
+`parallel.Mesh`: each rank steps its columns of the global env batch, the
+policy and Adam's moments are replicated, and one update all-reduces the
+advantage statistics and the gradient of each optimizer step, and its
+metrics, so that it computes what one process computes on the global
+batch (`make_update`).  The JAX package's `use_pallas` is TPU-only: the
+kernels here run wherever the tensors lie.
 """
 from __future__ import annotations
 
@@ -50,6 +55,8 @@ from gym_pybullet_drones_tpu_torch.models.cnn import (
     ActorCriticCNN, ieee_fp32_convs)
 from gym_pybullet_drones_tpu_torch.models.mlp import (
     ActorCritic, gaussian_entropy, gaussian_log_prob)
+from gym_pybullet_drones_tpu_torch.parallel.distributed import (
+    global_env_batch)
 from gym_pybullet_drones_tpu_torch.utils.device import resolve_device
 from gym_pybullet_drones_tpu_torch.utils.enums import ObservationType
 
@@ -208,7 +215,7 @@ def compute_dtype_of(ppo: PPOConfig):
 
 
 def make_env(env_cfg: core.AviaryConfig, task, num_members: int,
-             num_envs: int, device, env_path: str | None):
+             num_envs: int, device, env_path: str | None, mesh=None):
     """The training env of K = `num_members` members of E = `num_envs`
     envs each, as ONE env of K x E envs (member k owns env columns
     [k*E, (k+1)*E); a single run is K = 1), with flat observations:
@@ -217,26 +224,29 @@ def make_env(env_cfg: core.AviaryConfig, task, num_members: int,
     term, trunc), member-major (K, E, ...).  env_path None = the fused
     kernel where `fused_spec` admits (cfg, task), else the batched step;
     'fused' raises where the fused path is not admitted; 'batched' forces
-    `make_batched_step`."""
+    `make_batched_step`.  Under `mesh` these K x E envs are this rank's
+    columns of a global env of K x E x mesh.size envs, on the mesh's
+    device."""
     if env_path not in (None, "fused", "batched"):
         raise ValueError(f"env_path must be None|'fused'|'batched', "
                          f"got {env_path!r}")
     K, E, n_drones = num_members, num_envs, env_cfg.num_drones
     act_dim_per_drone = task.action_dim(env_cfg)
     obs_dim = n_drones * task.obs_dim(env_cfg)
+    total = K * E * (1 if mesh is None else mesh.size)
     made = None
     if env_path != "batched":
         try:
-            made = make_fused_rollout(env_cfg, task, K * E,
-                                      obs_layout="flat", device=device) \
-                + ("fused",)
+            made = make_fused_rollout(env_cfg, task, total,
+                                      obs_layout="flat", device=device,
+                                      mesh=mesh) + ("fused",)
         except ValueError:
             if env_path == "fused":
                 raise
     if made is None:
-        made = make_batched_step(env_cfg, task, K * E, autoreset=True,
-                                 obs_layout="flat", device=device) \
-            + ("batched",)
+        made = make_batched_step(env_cfg, task, total, autoreset=True,
+                                 obs_layout="flat", device=device,
+                                 mesh=mesh) + ("batched",)
     env_reset, env_step, path = made
 
     def reset():
@@ -295,28 +305,49 @@ def gae(traj: Transition, last_value, gamma: float, gae_lambda: float):
     return advantages, advantages + traj.value
 
 
-def ppo_loss(net, batch: Transition, advantages, returns, ppo: PPOConfig):
+def ranks_of(mesh):
+    """(R, the sum over the ranks) of `mesh`: one rank, whose sum is the
+    tensor itself, without one."""
+    return (1, lambda x: x) if mesh is None else (mesh.size,
+                                                  mesh.all_reduce)
+
+
+def ppo_loss(net, batch: Transition, advantages, returns, ppo: PPOConfig,
+             mesh=None):
     """The clipped PPO loss of K policies -> (total, (pg_loss, v_loss,
     entropy)), each (K,).  Every tensor has a leading member axis (a
     single policy is K = 1); each member's terms, the advantage
-    normalisation among them, reduce over its own samples only."""
+    normalisation among them, reduce over its own samples only.
+
+    The samples are this rank's columns of a minibatch spread over the R
+    ranks of `mesh` (all of it without one): the advantages are
+    normalised by the whole minibatch's mean and ddof-0 std (two sums
+    over the ranks: the sum, then the squared deviations; constants for
+    the gradient), and each term is this rank's share of the mean (its
+    own sum over the whole count; the entropy, the same on every rank,
+    over R), which the caller sums over the ranks."""
     K = advantages.shape[0]
-    avg = lambda x: x.reshape(K, -1).mean(dim=1)
+    ranks, reduce = ranks_of(mesh)
+    count = advantages.shape[1] * ranks
+    avg = lambda x: x.reshape(K, -1).sum(dim=1) / count
     mean, log_std, value = net(batch.obs)
     log_prob = gaussian_log_prob(mean, log_std, batch.action)
     ratio = torch.exp(log_prob - batch.log_prob)
-    norm_adv = (advantages - advantages.mean(dim=1, keepdim=True)) / (
-        advantages.std(dim=1, correction=0, keepdim=True) + 1e-8)
+    with torch.no_grad():
+        adv_mean = reduce(advantages.sum(dim=1, keepdim=True)) / count
+        adv_std = torch.sqrt(reduce(torch.square(
+            advantages - adv_mean).sum(dim=1, keepdim=True)) / count)
+    norm_adv = (advantages - adv_mean) / (adv_std + 1e-8)
+    ent = gaussian_entropy(log_std).reshape(K, -1).mean(dim=1) / ranks
     pg1 = ratio * norm_adv
     pg2 = torch.clamp(ratio, 1 - ppo.clip_eps, 1 + ppo.clip_eps) * norm_adv
     pg_loss = -avg(torch.minimum(pg1, pg2))
     v_loss = 0.5 * avg(torch.square(value - returns))
-    ent = avg(gaussian_entropy(log_std))
     total = pg_loss + ppo.vf_coef * v_loss - ppo.ent_coef * ent
     return total, (pg_loss, v_loss, ent)
 
 
-def make_update(ppo: PPOConfig, step, num_members: int, lead):
+def make_update(ppo: PPOConfig, step, num_members: int, lead, mesh=None):
     """One PPO update of K = `num_members` policies, each on its own E
     envs of `step` (as `make_env` returns it).  `lead` views a parameter,
     its gradient or its Adam moment with a leading member axis: `x[None]`
@@ -329,9 +360,21 @@ def make_update(ppo: PPOConfig, step, num_members: int, lead):
     member axis; each member gathers its minibatches with its own
     permutations, so member k's update is what a single run makes of its
     weights and draws.  The total loss is the SUM of the members' losses,
-    so each member's gradient is its own.  Every metric is (K,)."""
+    so each member's gradient is its own.  Every metric is (K,).
+
+    `mesh`: one policy (K = 1) trained data-parallel over R ranks, `step`
+    this rank's columns of the global env and `draws.noise` its columns
+    of the global noise; the permutations are replicated.  Each optimizer
+    step all-reduces the advantage statistics (`ppo_loss`) and the
+    flattened gradient (one sum), then clips and steps Adam on every
+    rank; the metrics are all-reduced once an update.  Under
+    `sb3_minibatching` the rollout is gathered instead, once an update,
+    and every rank runs the same full-batch steps with no collective."""
     K, T = num_members, ppo.rollout_steps
     lr_at = learning_rate(ppo)
+    # under sb3 minibatching every rank steps the gathered batch alone
+    loss_mesh = None if ppo.sb3_minibatching else mesh
+    ranks, reduce = ranks_of(loss_mesh)
 
     def run(net, opt_state: AdamState, env_state, obs, draws: Draws,
             after_rollout=None):
@@ -340,11 +383,16 @@ def make_update(ppo: PPOConfig, step, num_members: int, lead):
             net, step, env_state, obs, draws.noise.transpose(0, 1))
         advantages, returns = gae(traj, last_value, ppo.gamma,
                                   ppo.gae_lambda)
+        if mesh is not None and ppo.sb3_minibatching:
+            # the flattened (T*E) shuffle mixes every rank's envs
+            traj = Transition(*(global_env_batch(mesh, x, 2) for x in traj))
+            advantages = global_env_batch(mesh, advantages, 2)
+            returns = global_env_batch(mesh, returns, 2)
         if after_rollout is not None:
             after_rollout()
 
         # ---- minibatching: each member gathers with its own permutation
-        E = obs.shape[1]
+        E = traj.obs.shape[2]
         members = torch.arange(K, device=obs.device)[:, None]
         if ppo.sb3_minibatching:
             mb_size = T * E // ppo.num_minibatches
@@ -375,16 +423,25 @@ def make_update(ppo: PPOConfig, step, num_members: int, lead):
                 with ieee_fp32_convs():
                     total_loss, terms = ppo_loss(
                         net, mb, gather(advantages, take),
-                        gather(returns, take), ppo)
+                        gather(returns, take), ppo, loss_mesh)
                     grads = torch.autograd.grad(total_loss.sum(), params)
+                if ranks > 1:
+                    flat = reduce(
+                        torch.cat([g.reshape(-1) for g in grads]))
+                    grads = [x.view_as(g) for x, g in zip(
+                        flat.split([g.numel() for g in grads]), grads)]
                 state = clip_adam_step(
                     views, [lead(g) for g in grads], state,
                     lr_at(state.count), ppo.max_grad_norm)
                 aux.append(torch.stack([x.detach() for x in terms]))
         aux = torch.stack(aux).mean(dim=0)                    # (3, K)
+        # this rank's shares of the means, summed over the ranks in one go
+        means = torch.stack([traj.reward.sum(dim=(0, 2)),
+                             traj.value.sum(dim=(0, 2))]) / (T * E * ranks)
+        means, aux = reduce(torch.cat([means, aux])).split([2, 3])
         metrics = {
-            "mean_reward": traj.reward.mean(dim=(0, 2)),
-            "mean_value": traj.value.mean(dim=(0, 2)),
+            "mean_reward": means[0],
+            "mean_value": means[1],
             "pg_loss": aux[0],
             "v_loss": aux[1],
             "entropy": aux[2],
@@ -484,7 +541,7 @@ def make_arrival_rate(env_cfg: core.AviaryConfig, task, num_envs: int,
 
 def make_train(env_cfg: core.AviaryConfig, task, ppo: PPOConfig,
                device=None, network: torch.nn.Module | None = None,
-               env_path: str | None = None):
+               env_path: str | None = None, mesh=None):
     """Build (init, update, evaluate, network) for PPO on (cfg, task).
 
     init(generator) -> TrainState: the env reset and, unless `network` was
@@ -513,8 +570,25 @@ def make_train(env_cfg: core.AviaryConfig, task, ppo: PPOConfig,
 
     device: None = the CUDA card (raises without one); "cpu" runs the
     kernels' plain versions.  env_path: as `make_env` takes it.
+
+    mesh (`parallel.Mesh`): data-parallel training over its ranks, on the
+    mesh's device.  `init` resets this rank's envs only and returns its
+    shard of the TrainState that one process starts from: its env columns
+    and their rows of the reset noise, the policy and Adam's moments
+    replicated (`parallel.gather_train_state` assembles the global one;
+    `parallel.shard_train_state` cuts a global one, e.g. a single
+    process's, the same way).  `update` takes the shard (update.mesh is
+    the mesh).  `draws` are the global draws (every rank draws them from
+    the replicated generator and keeps its noise columns).  `evaluate`
+    steps this rank's envs and gathers the returns: (num_envs,) on every
+    rank.  `num_envs` must divide evenly over the ranks.
     """
     compute_dtype = compute_dtype_of(ppo)
+    if mesh is not None:
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device}")
+        device = mesh.device
     device = resolve_device(device)
     rgb = getattr(task, "obs", None) == ObservationType.RGB
     n_drones = env_cfg.num_drones
@@ -524,7 +598,9 @@ def make_train(env_cfg: core.AviaryConfig, task, ppo: PPOConfig,
     act_dim = n_drones * task.action_dim(env_cfg)
     obs_dim = n_drones * task.obs_dim(env_cfg)
     T, E = ppo.rollout_steps, ppo.num_envs
-    reset, step, env_path = make_env(env_cfg, task, 1, E, device, env_path)
+    lo, hi = (0, E) if mesh is None else mesh.env_range(E)
+    reset, step, env_path = make_env(env_cfg, task, 1, hi - lo, device,
+                                     env_path, mesh)
 
     def fresh_network(generator: torch.Generator) -> torch.nn.Module:
         # the JAX package's `key, sub = split(key); network.init(sub)`: the
@@ -565,17 +641,22 @@ def make_train(env_cfg: core.AviaryConfig, task, ppo: PPOConfig,
             for _ in range(ppo.update_epochs)])
         return Draws(noise, perms)
 
-    run = make_update(ppo, step, 1, lambda x: x[None])
+    run = make_update(ppo, step, 1, lambda x: x[None], mesh)
 
     def update(ts: TrainState, draws: Draws | None = None,
                after_rollout=None):
+        if ts.last_obs.shape[0] != hi - lo:
+            raise ValueError(f"a TrainState of {ts.last_obs.shape[0]} envs "
+                             f"for an update of {hi - lo} (a sharded "
+                             "update takes its own init's shard)")
         if draws is None:
             draws = _draws(ts.generator)
         if ts.reset_noise is not None:
             step.use_reset_noise(ts.reset_noise)
         (opt_state, env_state, obs), metrics = run(
             ts.network, ts.opt_state, ts.env_state, ts.last_obs[None],
-            Draws(draws.noise[None], draws.perms[None]), after_rollout)
+            Draws(draws.noise[None, :, lo:hi], draws.perms[None]),
+            after_rollout)
         return ts._replace(opt_state=opt_state, env_state=env_state,
                            last_obs=obs[0],
                            update_idx=ts.update_idx + 1), \
@@ -586,9 +667,11 @@ def make_train(env_cfg: core.AviaryConfig, task, ppo: PPOConfig,
     def evaluate(params_or_network, generator=None,
                  num_steps: int | None = None, episodic: bool = False):
         """`make_evaluate`'s evaluation of the one policy: (num_envs,)."""
-        return evaluate_members(params_or_network, generator, num_steps,
-                                episodic)[0]
+        returns = evaluate_members(params_or_network, generator, num_steps,
+                                   episodic)[0]
+        return returns if mesh is None else global_env_batch(mesh, returns)
 
     update.many = chain_updates(update)
     update.env_path = env_path
+    update.mesh = mesh
     return init, update, evaluate, template

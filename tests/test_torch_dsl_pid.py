@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from gym_pybullet_drones_tpu.control import dsl_pid as jpid
@@ -98,15 +99,20 @@ def test_closed_loop_matches_jax_and_golden():
     jctl = jpid.init_state((), jnp.float64)
     tctl = tpid.init_state((), torch.float64, device="cpu")
     assert all(leaf.shape == (3,) and not leaf.any() for leaf in tctl)
+    # one compile each for the 30 ticks and their 150 substeps
+    j_control = jax.jit(lambda ctl, pos, quat, vel, target: jpid
+                        .compute_control(jm, ctl, 1 / 48, pos, quat, vel,
+                                         target))
+    j_substep = jax.jit(lambda st, rpm: j_dyn_step(jm, st, rpm, 1 / 240))
     log = np.zeros((30, 7))
     for t in range(30):
-        jrpm, jctl, _, _ = jpid.compute_control(
-            jm, jctl, 1 / 48, jst.pos, jst.quat, jst.vel, jnp.asarray(target))
+        jrpm, jctl, _, _ = j_control(jctl, jst.pos, jst.quat, jst.vel,
+                                     jnp.asarray(target))
         trpm, tctl, _, _ = tpid.compute_control(
             tm, tctl, 1 / 48, tst.pos, tst.quat, tst.vel,
             torch.from_numpy(target))
         for _ in range(5):
-            jst = j_dyn_step(jm, jst, jrpm, 1 / 240)
+            jst = j_substep(jst, jrpm)
             tst = t_dyn_step(tm, tst, trpm, 1 / 240)
         log[t] = np.concatenate([trpm.numpy(), tst.pos.numpy()])
         np.testing.assert_allclose(trpm.numpy(), np.asarray(jrpm), rtol=1e-9)

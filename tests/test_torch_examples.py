@@ -134,15 +134,20 @@ def test_debug_probes_match_jax():
         TP.load_obstacle_urdf(TP.obstacle_asset_path(n), p)
         for n, p in (("architrave", (0.5, 0.0, 1.0)),
                      ("box", (1.0, 0.0, 0.05))))
-    runs = {"hover": (start, 240, {}),
-            "force": (start, 120, {"ext_force": f32([[0.01, 0.0, 0.0]])}),
-            "torque": (start, 120, {"ext_torque": f32([[0.0, 0.0, 1e-5]])}),
+    zero = f32([[0.0, 0.0, 0.0]])
+    runs = {"hover": (start, 240, zero, zero, ()),
+            "force": (start, 120, f32([[0.01, 0.0, 0.0]]), zero, ()),
+            "torque": (start, 120, zero, f32([[0.0, 0.0, 1e-5]]), ()),
             "obstacle": (start._replace(vel=f32([[0.5, 0.0, 0.0]])), 240,
-                         {"obstacles": obstacles})}
-    for name, (s, steps, kw) in runs.items():
-        step = jax.jit(lambda s: pyb_step(JP.CF2X, s, rpm, DT, **kw))
+                         zero, zero, obstacles)}
+    # the external force and torque are arguments: one compile for the
+    # three runs without obstacles, one for the run with them
+    steps_of = {obst: jax.jit(lambda s, f, t, obst=obst: pyb_step(
+        JP.CF2X, s, rpm, DT, ext_force=f, ext_torque=t, obstacles=obst))
+        for obst in ((), obstacles)}
+    for name, (s, steps, force, torque, obst) in runs.items():
         for _ in range(steps):
-            s = step(s)
+            s = steps_of[obst](s, force, torque)
         for k in ("pos", "quat", "vel", "ang_v"):
             np.testing.assert_allclose(getattr(out[name], k).numpy(),
                                        np.asarray(getattr(s, k)),

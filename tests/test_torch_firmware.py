@@ -14,6 +14,7 @@ curve and commander bit for bit; held to `CONTROL_ATOL`.
 """
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -94,6 +95,8 @@ def test_mellinger_matches_jax_takeoff_goto_land():
     n_ticks = 5 * 500
     wps = _takeoff_goto_land_waypoints(n_ticks, dt)
     js, ts = jfw.firmware_init(F64), tfw.firmware_init(T64)
+    # one compile for the 500 ticks, where eager dispatch pays each op
+    j_mellinger = jax.jit(jfw.mellinger_control, static_argnums=6)
     pos, vel, rpy, gyro_deg = (np.zeros(3) for _ in range(4))
     # a setpoint yaw other than 0, so the desired-yaw path acts
     sp_q = np.asarray(jquat.rpy_to_quat(_j([0.0, 0.0, 0.3])))
@@ -103,8 +106,8 @@ def test_mellinger_matches_jax_takeoff_goto_land():
         jsp = jfw.Setpoint(_j(wps[i]), _j(np.zeros(3)), _j([0.0, 0.0, 0.1]),
                            _j([1.0, -2.0, 0.5]), _j(sp_q))
         tsp = tfw.Setpoint(*(_t(np.asarray(v)) for v in jsp))
-        jc, js = jfw.mellinger_control(js, jsp, _j(pos), _j(vel), _j(quat),
-                                       _j(gyro_deg), dt)
+        jc, js = j_mellinger(js, jsp, _j(pos), _j(vel), _j(quat),
+                             _j(gyro_deg), dt)
         tc, ts = tfw.mellinger_control(ts, tsp, _t(pos), _t(vel), _t(quat),
                                        _t(gyro_deg), dt)
         jc = np.asarray(jc)
@@ -136,16 +139,20 @@ def test_fwpid_cascade_matches_jax():
     rng = np.random.default_rng(5)
     max_err = 0.0
 
+    # one compile each for the 600 and 1200 calls
+    j_position = jax.jit(jfp.position_controller, static_argnums=1)
+    j_attitude = jax.jit(jfp.attitude_rate_controller, static_argnums=1)
+
     def leaves(s):
         return [x for f in s for x in (f if isinstance(f, tuple) else (f,))]
     for i in range(n):
-        js = jfp.position_controller(js, dt_pos, _j(pos), _j(vel),
-                                     _j(rpy_deg[2]), _j(wps[i]))
+        js = j_position(js, dt_pos, _j(pos), _j(vel), _j(rpy_deg[2]),
+                        _j(wps[i]))
         ts = tfp.position_controller(ts, dt_pos, _t(pos), _t(vel),
                                      _t(rpy_deg[2]), _t(wps[i]))
         for _ in range(2):
-            jout, js = jfp.attitude_rate_controller(
-                js, dt_att, _j(rpy_deg), _j(gyro_deg), _j(170.0))
+            jout, js = j_attitude(js, dt_att, _j(rpy_deg), _j(gyro_deg),
+                                  _j(170.0))
             tout, ts = tfp.attitude_rate_controller(
                 ts, dt_att, _t(rpy_deg), _t(gyro_deg), _t(170.0))
             jout = np.array([float(v) for v in jout])

@@ -79,6 +79,11 @@ def test_scan_sees_the_port():
                  "gym_pybullet_drones_tpu_torch/examples/cf.py",
                  "gym_pybullet_drones_tpu_torch/examples/beta.py",
                  "gym_pybullet_drones_tpu_torch/examples/debug.py",
+                 "gym_pybullet_drones_tpu_torch/parallel/__init__.py",
+                 "gym_pybullet_drones_tpu_torch/parallel/distributed.py",
+                 "gym_pybullet_drones_tpu_torch/parallel/mesh.py",
+                 "gym_pybullet_drones_tpu_torch/parallel/launch.py",
+                 "gym_pybullet_drones_tpu_torch/utils/profiling.py",
                  "chip_smoke.py"):
         assert must in names
     assert FORBIDDEN.search("import jax.numpy as jnp")

@@ -8,6 +8,8 @@ float32 tolerance: 2e-5 absolute / 1e-4 relative on positions, attitude and
 velocity; the angular velocity, which a contact impulse reaches through 1/J
 (7e4), 5e-4 / 3e-4 (the JAX package's own between its two PYB paths,
 tests/test_pallas.py:241-259)."""
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -45,6 +47,17 @@ def _scenario(name, hover):
 
 SCENARIOS = ("free_flight", "drop_to_rest", "tilted_landing", "sphere_hit",
              "box_hit")
+_JAX_STEPS = {}
+
+
+def _jax_step(jm, obstacles, sweeps):
+    """The jitted JAX `pyb_step`, the rpm an argument: one compile for
+    each (obstacles, sweeps, dtype), shared by the scenarios."""
+    key = (obstacles, sweeps)
+    if key not in _JAX_STEPS:
+        _JAX_STEPS[key] = jax.jit(lambda s, rpm: jrb.pyb_step(
+            jm, s, rpm, DT, obstacles=obstacles, solver_iterations=sweeps))
+    return _JAX_STEPS[key]
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
@@ -59,13 +72,12 @@ def test_pyb_step_matches_jax(name, sweeps, dtype):
                                                         ang_v)))
     ts = trb.PybState(*(torch.from_numpy(np.asarray(a, dtype))
                         for a in (pos, quat, vel, ang_v)))
-    j_step = jax.jit(lambda s: jrb.pyb_step(
-        jm, s, jnp.asarray(rpm, dtype), DT, obstacles=obstacles,
-        solver_iterations=sweeps))
+    j_step = _jax_step(jm, obstacles, sweeps)
+    j_rpm = jnp.asarray(rpm, dtype)
     t_rpm = torch.from_numpy(np.asarray(rpm, dtype))
     touched = False
     for t in range(steps):
-        js = j_step(js)
+        js = j_step(js, j_rpm)
         ts = trb.pyb_step(tm, ts, t_rpm, DT, obstacles=obstacles,
                           solver_iterations=sweeps)
         for k in ("pos", "quat", "vel", "ang_v"):
@@ -108,9 +120,9 @@ def test_hover_on_the_ground_stays_level():
              np.zeros((1, 3), np.float32), np.zeros((1, 3), np.float32))
     js = jrb.PybState(*(jnp.asarray(a) for a in start))
     ts = trb.PybState(*(torch.from_numpy(a) for a in start))
-    j_step = jax.jit(lambda s: jrb.pyb_step(jm, s, jnp.asarray(rpm), DT))
+    j_step, j_rpm = _jax_step(jm, (), jrb.SOLVER_ITERATIONS), jnp.asarray(rpm)
     for _ in range(240):
-        js = j_step(js)
+        js = j_step(js, j_rpm)
         ts = trb.pyb_step(tm, ts, torch.from_numpy(rpm), DT)
     np.testing.assert_allclose(ts.pos.numpy(), np.asarray(js.pos), atol=2e-5)
     np.testing.assert_allclose(ts.quat.numpy(), np.asarray(js.quat),
@@ -149,6 +161,18 @@ def _pair_case(name, n):
     return pos, rpy, vel, ang_v
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_resolve(oriented):
+    """The jitted JAX `resolve_drone_collisions` (one compile for each
+    shape and dtype, shared by the cases), with the drones' orientation
+    or the legacy centred response."""
+    jm = models("cf2x")[0]
+    if oriented:
+        return jax.jit(lambda p, v, q, w: jrb.resolve_drone_collisions(
+            jm, p, v, DT, quat=q, ang_v=w))
+    return jax.jit(lambda p, v: jrb.resolve_drone_collisions(jm, p, v, DT))
+
+
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 @pytest.mark.parametrize("n", [2, 4])
 @pytest.mark.parametrize("name", ["head_on", "glancing", "height_offset"])
@@ -157,9 +181,7 @@ def test_resolve_drone_collisions_matches_jax(name, n, dtype):
     pos, rpy, vel, ang_v = _pair_case(name, n)
     quat = np.asarray(jq.rpy_to_quat(jnp.asarray(rpy)))
     a = [np.asarray(x, dtype) for x in (pos, vel, quat, ang_v)]
-    jp, jv, jw = jrb.resolve_drone_collisions(
-        jm, jnp.asarray(a[0]), jnp.asarray(a[1]), DT,
-        quat=jnp.asarray(a[2]), ang_v=jnp.asarray(a[3]))
+    jp, jv, jw = _jax_resolve(True)(*(jnp.asarray(x) for x in a))
     tp, tv, tw = trb.resolve_drone_collisions(
         tm, torch.from_numpy(a[0]), torch.from_numpy(a[1]), DT,
         quat=torch.from_numpy(a[2]), ang_v=torch.from_numpy(a[3]))
@@ -181,8 +203,7 @@ def test_resolve_drone_collisions_matches_jax(name, n, dtype):
     else:
         assert np.abs(tw.numpy() - a[3]).max() > 1e-2       # it tumbles
     # the legacy centred response (no orientation given)
-    jl = jrb.resolve_drone_collisions(jm, jnp.asarray(a[0]),
-                                      jnp.asarray(a[1]), DT)
+    jl = _jax_resolve(False)(jnp.asarray(a[0]), jnp.asarray(a[1]))
     tl = trb.resolve_drone_collisions(tm, torch.from_numpy(a[0]),
                                       torch.from_numpy(a[1]), DT)
     assert len(tl) == 2
