@@ -171,6 +171,9 @@ _ARGTYPES = {
 _loaded: dict | None = None
 _geometry: dict = {}                # kernel name -> its C geometry function
 build_seconds: float | None = None  # wall time `load()` spent in `build()`
+# wall time of the first `load()` as a whole: the build, every library's
+# load and its parameter struct's check
+load_seconds: float | None = None
 build_log: dict = {}                # kernel name -> nvcc output, when built
 
 
@@ -234,7 +237,7 @@ def build() -> dict:
 
 def load() -> dict:
     """Build if needed, load, and return {kernel name: bound C function}."""
-    global _loaded, build_seconds
+    global _loaded, build_seconds, load_seconds
     if _loaded is not None:
         return _loaded
     t0 = time.perf_counter()
@@ -261,6 +264,7 @@ def load() -> dict:
         geo.restype = None
         _geometry[name] = geo
     _loaded = fns
+    load_seconds = time.perf_counter() - t0
     return fns
 
 

@@ -39,6 +39,7 @@ from gym_pybullet_drones_tpu_torch.params import CF2X
 from gym_pybullet_drones_tpu_torch.utils.device import resolve_device
 from gym_pybullet_drones_tpu_torch.utils.enums import (
     ObservationType, Physics)
+from gym_pybullet_drones_tpu_torch.utils.profiling import span
 
 
 class ResetNoise:
@@ -321,7 +322,8 @@ def make_fused_rollout(cfg: core.AviaryConfig, task, num_envs: int,
     task reward/termination, obs assembly, and auto-reset all in-kernel.
 
     Returns (reset_fn, step_fn): reset_fn() -> (carry, obs);
-    step_fn(carry, action (B, N, A)) -> (carry, obs, reward, term, trunc).
+    step_fn(carry, action (B, N, A)) -> (carry, obs, reward, term, trunc),
+    in a span `env.fused_step` (`utils.profiling.span`).
     The carry is an opaque (RC, B) float32 row block (columns = envs); use
     make_batched_step for an inspectable EnvState carry.
 
@@ -369,11 +371,13 @@ def make_fused_rollout(cfg: core.AviaryConfig, task, num_envs: int,
         return carry, obs
 
     def step_fn(carry, action):
-        # (B, N, A) -> (N*A, B) drone-major action rows
-        a_rows = torch.as_tensor(action, dtype=torch.float32, device=device) \
-            .reshape(num_envs, n * act_dim).t().contiguous()
-        carry, outs = kernel_fused.fused_env_step(spec, carry, a_rows)
-        return (carry,) + kernel_fused.unpack_outs(
-            outs, n, buf_rows, obs_layout, spec.n_extra)
+        with span("env.fused_step"):
+            # (B, N, A) -> (N*A, B) drone-major action rows
+            a_rows = torch.as_tensor(action, dtype=torch.float32,
+                                     device=device) \
+                .reshape(num_envs, n * act_dim).t().contiguous()
+            carry, outs = kernel_fused.fused_env_step(spec, carry, a_rows)
+            return (carry,) + kernel_fused.unpack_outs(
+                outs, n, buf_rows, obs_layout, spec.n_extra)
 
     return reset_fn, step_fn

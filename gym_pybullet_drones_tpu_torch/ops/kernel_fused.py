@@ -78,6 +78,7 @@ import torch
 from gym_pybullet_drones_tpu_torch import _build
 from gym_pybullet_drones_tpu_torch.utils.device import resolve_device
 from gym_pybullet_drones_tpu_torch.utils.enums import ActionType, Physics
+from gym_pybullet_drones_tpu_torch.utils.profiling import span
 from gym_pybullet_drones_tpu_torch.params import CF2X
 from gym_pybullet_drones_tpu_torch.ops import (
     kernel_dyn, kernel_env, kernel_math, kernel_pid)
@@ -359,28 +360,33 @@ def fused_env_step(spec: FusedSpec, carry: torch.Tensor,
     A CUDA tensor launches the CUDA kernel on the current stream (no
     synchronisation; outputs from `torch.empty`); a CPU tensor runs
     `fused_env_step_plain`.  Anything the kernel does not take raises.
+    The whole call, the CPU path included, is the span
+    `kernel.fused_env_step` (`utils.profiling.span`).
     """
     global launches
-    check_rows("carry", carry, spec.carry_rows)
-    check_rows("action_rows", action_rows, spec.n * spec.act_dim, like=carry)
-    if carry.device.type == "cpu":
-        return fused_env_step_plain(spec, carry, action_rows)
-    if carry.device.type != "cuda":
-        raise ValueError(f"unsupported device {carry.device}")
-    fn = _build.load()["fused_env_step"]
-    b = carry.shape[1]
-    carry_out = torch.empty_like(carry)
-    outs = torch.empty((spec.out_rows, b), dtype=torch.float32,
-                       device=carry.device)
-    with torch.cuda.device(carry.device):
-        err = fn(carry.data_ptr(), action_rows.data_ptr(),
-                 carry_out.data_ptr(), outs.data_ptr(), b, carry.stride(0),
-                 ctypes.byref(_step_params(spec)),
-                 torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_env_step launch failed: CUDA error {err}")
-    launches += 1
-    return carry_out, outs
+    with span("kernel.fused_env_step"):
+        check_rows("carry", carry, spec.carry_rows)
+        check_rows("action_rows", action_rows, spec.n * spec.act_dim,
+                   like=carry)
+        if carry.device.type == "cpu":
+            return fused_env_step_plain(spec, carry, action_rows)
+        if carry.device.type != "cuda":
+            raise ValueError(f"unsupported device {carry.device}")
+        fn = _build.load()["fused_env_step"]
+        b = carry.shape[1]
+        carry_out = torch.empty_like(carry)
+        outs = torch.empty((spec.out_rows, b), dtype=torch.float32,
+                           device=carry.device)
+        with torch.cuda.device(carry.device):
+            err = fn(carry.data_ptr(), action_rows.data_ptr(),
+                     carry_out.data_ptr(), outs.data_ptr(), b,
+                     carry.stride(0), ctypes.byref(_step_params(spec)),
+                     torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(
+                f"fused_env_step launch failed: CUDA error {err}")
+        launches += 1
+        return carry_out, outs
 
 
 def pack_carry(state_leaves: dict, n: int, buf_rows: int, b: int,

@@ -14,8 +14,10 @@ computes what one process computes on the global batch, up to the order
 of the reductions.
 
 Every collective is an `all_reduce` or a `broadcast` (all that gloo runs
-on CUDA tensors) and goes through the mesh, which counts them
-(`Mesh.collectives`).  Kernels launch on the current stream, which the
+on CUDA tensors) and goes through the mesh, which counts them and their
+bytes (`Mesh.collectives`, `Mesh.collective_bytes`) and wraps each in a
+span (`mesh.all_reduce`, `mesh.broadcast`, with the attribute `bytes`;
+`utils.profiling.span`).  Kernels launch on the current stream, which the
 collectives wait on.
 """
 from __future__ import annotations
@@ -27,6 +29,7 @@ from gym_pybullet_drones_tpu_torch.envs.core import map_leaves
 from gym_pybullet_drones_tpu_torch.envs.fast import ResetNoise
 from gym_pybullet_drones_tpu_torch.parallel.distributed import (
     _env_int, check_backend, global_env_batch, local_env_batch)
+from gym_pybullet_drones_tpu_torch.utils.profiling import span
 
 
 class Mesh:
@@ -42,6 +45,7 @@ class Mesh:
         self.device = torch.device(device)
         self.backend = backend
         self.collectives = 0      # collectives this rank entered
+        self.collective_bytes = 0  # the bytes of the tensors it entered
 
     def env_range(self, num_envs: int) -> tuple:
         """(lo, hi): this rank's columns of a global batch of `num_envs`;
@@ -52,18 +56,24 @@ class Mesh:
         per = num_envs // self.size
         return self.rank * per, (self.rank + 1) * per
 
+    def _entered(self, x: torch.Tensor) -> int:
+        nbytes = x.numel() * x.element_size()
+        self.collectives += 1
+        self.collective_bytes += nbytes
+        return nbytes
+
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """Sum `x` over the ranks, in place; returns it."""
         if self.size > 1:
-            dist.all_reduce(x)
-            self.collectives += 1
+            with span("mesh.all_reduce", bytes=self._entered(x)):
+                dist.all_reduce(x)
         return x
 
     def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Rank `src`'s `x` on every rank, in place; returns it."""
         if self.size > 1:
-            dist.broadcast(x, src)
-            self.collectives += 1
+            with span("mesh.broadcast", bytes=self._entered(x)):
+                dist.broadcast(x, src)
         return x
 
 

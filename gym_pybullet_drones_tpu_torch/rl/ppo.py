@@ -59,6 +59,7 @@ from gym_pybullet_drones_tpu_torch.parallel.distributed import (
     global_env_batch)
 from gym_pybullet_drones_tpu_torch.utils.device import resolve_device
 from gym_pybullet_drones_tpu_torch.utils.enums import ObservationType
+from gym_pybullet_drones_tpu_torch.utils.profiling import span
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-5
 
@@ -369,7 +370,11 @@ def make_update(ppo: PPOConfig, step, num_members: int, lead, mesh=None):
     flattened gradient (one sum), then clips and steps Adam on every
     rank; the metrics are all-reduced once an update.  Under
     `sb3_minibatching` the rollout is gathered instead, once an update,
-    and every rank runs the same full-batch steps with no collective."""
+    and every rank runs the same full-batch steps with no collective.
+
+    Spans (`utils.profiling.span`): `ppo.update` around the whole, and
+    inside it `ppo.rollout`, `ppo.gae` (with the sb3 gather) and
+    `ppo.optimize` (the optimizer steps and the metrics' reduce)."""
     K, T = num_members, ppo.rollout_steps
     lr_at = learning_rate(ppo)
     # under sb3 minibatching every rank steps the gathered batch alone
@@ -378,22 +383,35 @@ def make_update(ppo: PPOConfig, step, num_members: int, lead, mesh=None):
 
     def run(net, opt_state: AdamState, env_state, obs, draws: Draws,
             after_rollout=None):
-        # ---- rollout: traj leaves (T, K, E, ...) ----
-        env_state, obs, traj, last_value = collect_rollout(
-            net, step, env_state, obs, draws.noise.transpose(0, 1))
-        advantages, returns = gae(traj, last_value, ppo.gamma,
-                                  ppo.gae_lambda)
-        if mesh is not None and ppo.sb3_minibatching:
-            # the flattened (T*E) shuffle mixes every rank's envs
-            traj = Transition(*(global_env_batch(mesh, x, 2) for x in traj))
-            advantages = global_env_batch(mesh, advantages, 2)
-            returns = global_env_batch(mesh, returns, 2)
-        if after_rollout is not None:
-            after_rollout()
+        # the phases' spans lie at the phase boundaries, outside the
+        # per-step bodies
+        with span("ppo.update"):
+            # ---- rollout: traj leaves (T, K, E, ...) ----
+            with span("ppo.rollout"):
+                env_state, obs, traj, last_value = collect_rollout(
+                    net, step, env_state, obs, draws.noise.transpose(0, 1))
+            with span("ppo.gae"):
+                advantages, returns = gae(traj, last_value, ppo.gamma,
+                                          ppo.gae_lambda)
+                if mesh is not None and ppo.sb3_minibatching:
+                    # the flattened (T*E) shuffle mixes every rank's envs
+                    traj = Transition(*(global_env_batch(mesh, x, 2)
+                                        for x in traj))
+                    advantages = global_env_batch(mesh, advantages, 2)
+                    returns = global_env_batch(mesh, returns, 2)
+            if after_rollout is not None:
+                after_rollout()
+            with span("ppo.optimize"):
+                opt_state, metrics = optimize(net, opt_state, traj,
+                                              advantages, returns, draws)
+        return (opt_state, env_state, obs), metrics
 
+    def optimize(net, opt_state, traj, advantages, returns, draws):
+        """`update_epochs x num_minibatches` optimizer steps on the
+        rollout, then the metrics: (opt_state, metrics)."""
         # ---- minibatching: each member gathers with its own permutation
         E = traj.obs.shape[2]
-        members = torch.arange(K, device=obs.device)[:, None]
+        members = torch.arange(K, device=traj.obs.device)[:, None]
         if ppo.sb3_minibatching:
             mb_size = T * E // ppo.num_minibatches
             per_member = lambda x: x.transpose(0, 1).reshape(
@@ -446,7 +464,7 @@ def make_update(ppo: PPOConfig, step, num_members: int, lead, mesh=None):
             "v_loss": aux[1],
             "entropy": aux[2],
         }
-        return (AdamState(state.count, mu, nu), env_state, obs), metrics
+        return AdamState(state.count, mu, nu), metrics
     return run
 
 

@@ -27,6 +27,7 @@ from gym_pybullet_drones_tpu_torch.rl.population import (
     make_sharded_population_update, shard_population)
 from gym_pybullet_drones_tpu_torch.utils.checkpoint import (
     restore_checkpoint, save_checkpoint)
+from gym_pybullet_drones_tpu_torch.utils import profiling
 from gym_pybullet_drones_tpu_torch.utils.enums import ActionType, Physics
 
 E, T, MB, EPOCHS, K = 8, 8, 2, 2, 2
@@ -104,9 +105,18 @@ def sharded_run(mesh, cfg, task, p, path, start=None, d=None, seed=0):
     ts = init(torch.Generator().manual_seed(seed))
     if start is not None:
         ts.network.load_state_dict(start)
-    before = mesh.collectives
-    ts, m = make_sharded_update(update, mesh)(ts, d)
-    local = dict(record(ts, m), collectives=mesh.collectives - before)
+    before, bytes_before = mesh.collectives, mesh.collective_bytes
+    calls, undo = counting_collectives()
+    try:
+        with profiling.recording() as spans:
+            ts, m = make_sharded_update(update, mesh)(ts, d)
+    finally:
+        undo()
+    local = dict(record(ts, m), collectives=mesh.collectives - before,
+                 collective_bytes=mesh.collective_bytes - bytes_before,
+                 dist_calls=list(calls), spans={
+                     k: v for k, v in spans.summary().items()
+                     if k.startswith("mesh.")})
     return local, record(gather_train_state(ts, mesh), m), ts
 
 
@@ -143,6 +153,10 @@ def case_single(mesh):
         local, gathered, ts = sharded_run(mesh, cfg, task, p, path, d=d)
         out[name] = {"sharded": gathered,
                      "collectives": local["collectives"],
+                     "collective_record": {
+                         k: local[k] for k in ("collectives",
+                                               "collective_bytes",
+                                               "dist_calls", "spans")},
                      "init": initial_shards(mesh, cfg, task, p, path)}
         if ts.reset_noise is not None:
             out[name]["noise_index"] = ts.reset_noise.index
@@ -166,14 +180,17 @@ def initial_shards(mesh, cfg, task, p, path):
 
 
 def counting_collectives():
-    """Wrap torch.distributed's collectives with a counter: (count, undo)."""
-    calls = [0]
+    """Wrap torch.distributed's collectives with a counter: ([count,
+    bytes of the tensors they were given first], undo)."""
+    calls = [0, 0]
     saved = {name: getattr(dist, name) for name in COLLECTIVES
              if hasattr(dist, name)}
 
     def wrap(fn):
         def counted(*args, **kwargs):
             calls[0] += 1
+            if args and isinstance(args[0], torch.Tensor):
+                calls[1] += args[0].numel() * args[0].element_size()
             return fn(*args, **kwargs)
         return counted
     for name, fn in saved.items():

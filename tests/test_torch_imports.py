@@ -13,8 +13,8 @@ PORT = os.path.join(ROOT, "gym_pybullet_drones_tpu_torch")
 FILES = sorted(glob.glob(os.path.join(PORT, "**", "*.py"), recursive=True)) \
     + [os.path.join(ROOT, "chip_smoke.py"),
        *(os.path.join(ROOT, "scripts", name) for name in (
-           "downwash_witness.py", "dyn_launch_sweep.py", "ppo_trace.py",
-           "sincos_identity.py"))]
+           "downwash_witness.py", "dyn_launch_sweep.py",
+           "sincos_identity.py", "span_cost.py"))]
 FORBIDDEN = re.compile(
     r"^\s*(?:import|from)\s+"
     r"(jax|flax|optax|gymnasium|gym_pybullet_drones_tpu)(?![\w])",

@@ -229,6 +229,22 @@ def test_sharded_update_matches_one_process(ranks, name):
         assert results[0]["single"][name]["noise_index"] == 1 + W.T
 
 
+@pytest.mark.parametrize("name", ["fused", "batched_noise", "sb3"])
+def test_sharded_update_records_its_collectives(ranks, name):
+    """Each rank's `Mesh.collective_bytes` and `mesh.*` spans against the
+    collectives torch.distributed was handed during the update."""
+    results, _ = ranks
+    for res in results:
+        got = res["single"][name]["collective_record"]
+        calls, nbytes = got["dist_calls"]
+        assert got["collectives"] == calls > 0
+        assert got["collective_bytes"] == nbytes > 0
+        spans = got["spans"]
+        assert sum(s["count"] for s in spans.values()) == calls
+        assert sum(s["attrs"]["bytes"] for s in spans.values()) == nbytes
+        assert spans["mesh.all_reduce"]["count"] == calls
+
+
 def test_sharded_population_needs_no_collective(ranks):
     results, _ = ranks
     want = results[0]["population"]["single"]

@@ -1,0 +1,133 @@
+"""The port's spans (`gym_pybullet_drones_tpu_torch/utils/profiling.py`)
+on the CPU: the shared no-op when tracing is off, a record's tree and
+aggregates, the spans one PPO update makes, outputs bit for bit with
+tracing on and off, and the spans as `user_annotation` ranges in a
+`torch.profiler` trace.  The update is Hover on DYN physics through the
+fused path's plain version, 16 envs x 8 steps, 2 minibatches x 2
+epochs."""
+import json
+
+import pytest
+import torch
+
+from gym_pybullet_drones_tpu_torch import params as P
+from gym_pybullet_drones_tpu_torch.envs import AviaryConfig, HoverTask
+from gym_pybullet_drones_tpu_torch.rl import PPOConfig, make_train
+from gym_pybullet_drones_tpu_torch.utils import profiling
+from gym_pybullet_drones_tpu_torch.utils.enums import ActionType, Physics
+
+PHASES = ("ppo.update", "ppo.rollout", "ppo.gae", "ppo.optimize")
+T = 8
+
+
+@pytest.fixture(scope="module")
+def trainer():
+    cfg = AviaryConfig(P.CF2X, 1, Physics.DYN, 240, 30)
+    task = HoverTask(act=ActionType.RPM)
+    ppo = PPOConfig(num_envs=16, rollout_steps=T, num_minibatches=2,
+                    update_epochs=2)
+    init, update, _, _ = make_train(cfg, task, ppo, device="cpu")
+    assert update.env_path == "fused"
+    return init, update
+
+
+def one_update(trainer):
+    init, update = trainer
+    return update(init(torch.Generator().manual_seed(7)))
+
+
+class FakeClock:
+    """perf_counter_ns in whole steps that the test sets."""
+
+    def __init__(self):
+        self.now = 0
+
+    def __call__(self):
+        return self.now
+
+
+def test_off_is_the_shared_no_op(trainer):
+    assert profiling.span("a") is profiling.span("b", bytes=4)
+    assert profiling.span("a") is profiling.OFF
+    with pytest.raises(KeyError):
+        with profiling.span("a"):
+            raise KeyError("through")
+    one_update(trainer)
+    # the update opened no record, and a record opened after it is empty
+    assert profiling._record is None
+    with profiling.recording() as rec:
+        pass
+    assert rec.summary() == {} and len(rec.spans) == 0
+
+
+def test_record_tree_self_time_attrs_and_ring(monkeypatch):
+    clock = FakeClock()
+    monkeypatch.setattr(profiling, "_clock", clock)
+    monkeypatch.setattr(profiling, "RING_CAPACITY", 4)
+    with profiling.recording() as rec:
+        with profiling.span("outer", bytes=10):        # 0 .. 10
+            clock.now = 1
+            with profiling.span("inner", bytes=3):     # 1 .. 4
+                clock.now = 4
+            with profiling.span("inner", bytes=5, n=2):  # 4 .. 6
+                clock.now = 6
+            clock.now = 10
+        for k in range(3):                           # 10 .. 12, 14, 16
+            with profiling.span("tail"):
+                clock.now += 2
+    got = rec.summary()
+    assert got["outer"] == {"count": 1, "total_s": 10e-9, "self_s": 5e-9,
+                            "attrs": {"bytes": 10}}
+    assert got["inner"] == {"count": 2, "total_s": 5e-9, "self_s": 5e-9,
+                            "attrs": {"bytes": 8, "n": 2}}
+    assert got["tail"]["count"] == 3 and got["tail"]["total_s"] == 6e-9
+    # the ring keeps the latest 4 of 6 spans; the aggregates all 6
+    assert [s[:4] for s in rec.spans] == [
+        ("outer", None, 0, 10), ("tail", None, 10, 12),
+        ("tail", None, 12, 14), ("tail", None, 14, 16)]
+    assert rec.spans[0][4] == {"bytes": 10}
+    assert sum(v["count"] for v in got.values()) == 6
+    assert profiling._record is None
+
+
+def test_update_span_tree(trainer):
+    with profiling.recording() as rec:
+        one_update(trainer)
+    got = rec.summary()
+    counts = {name: got[name]["count"] for name in got}
+    assert counts == {**{p: 1 for p in PHASES}, "env.fused_step": T,
+                      "kernel.fused_env_step": T}
+    parents = {(name, parent) for name, parent, *_ in rec.spans}
+    assert parents == {
+        ("ppo.update", None), ("ppo.rollout", "ppo.update"),
+        ("ppo.gae", "ppo.update"), ("ppo.optimize", "ppo.update"),
+        ("env.fused_step", "ppo.rollout"),
+        ("kernel.fused_env_step", "env.fused_step")}
+    update = got["ppo.update"]
+    phases = sum(got[p]["total_s"] for p in PHASES[1:])
+    assert 0 < phases <= update["total_s"]
+    assert update["self_s"] == pytest.approx(update["total_s"] - phases,
+                                             abs=1e-9)
+
+
+def test_tracing_leaves_outputs_bit_for_bit(trainer, tmp_path):
+    ts_off, m_off = one_update(trainer)
+    with profiling.trace(str(tmp_path)), profiling.recording():
+        ts_on, m_on = one_update(trainer)
+    for a, b in zip(ts_off.network.parameters(), ts_on.network.parameters()):
+        assert torch.equal(a, b)
+    for a, b in zip(ts_off.opt_state.mu + ts_off.opt_state.nu,
+                    ts_on.opt_state.mu + ts_on.opt_state.nu):
+        assert torch.equal(a, b)
+    assert torch.equal(ts_off.env_state, ts_on.env_state)
+    assert torch.equal(ts_off.last_obs, ts_on.last_obs)
+    assert m_off.keys() == m_on.keys()
+    assert all(torch.equal(m_off[k], m_on[k]) for k in m_off)
+    # the spans are user_annotation ranges of the profiler's trace
+    with open(tmp_path / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    for name in PHASES:
+        assert names.count(name) == 1, name
+    assert names.count("env.fused_step") == T
+    assert names.count("kernel.fused_env_step") == T
