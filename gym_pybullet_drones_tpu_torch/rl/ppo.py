@@ -8,9 +8,11 @@ the device, an update here is a Python loop that enqueues work on the
 card: one policy forward pass and ONE env-kernel launch per control step
 (`envs.fast.make_fused_rollout`, the fused env step, when `fused_spec`
 admits the (cfg, task); else `make_batched_step`), then the GAE recursion
-and `update_epochs x num_minibatches` optimizer steps.  Nothing inside a
-rollout step or a minibatch step reads a value back to the host: the
-metrics come back as 0-d tensors on the device.
+and `update_epochs x num_minibatches` optimizer steps (`MinibatchSteps`:
+on the card, where no collective lies inside the step, the replays of
+one CUDA graph of the step).  Nothing inside a rollout step or a
+minibatch step reads a value back to the host: the metrics come back as
+0-d tensors on the device.
 
 The optimizer is written in optax's form, as the JAX package chains it:
 `clip_by_global_norm(max_grad_norm)` (leave the gradient as it is where
@@ -114,7 +116,8 @@ class Transition(NamedTuple):
 
 class AdamState(NamedTuple):
     """optax's `ScaleByAdamState`: the step count (a host int: the bias
-    corrections and the schedule are host scalars) and the moments."""
+    corrections and the schedule are computed on the host, a table of
+    them an update) and the moments."""
     count: int
     mu: list
     nu: list
@@ -152,14 +155,19 @@ def adam_init(params) -> AdamState:
                      [torch.zeros_like(p) for p in params])
 
 
-def clip_adam_step(params, grads, state: AdamState, lr: float,
-                   max_grad_norm: float) -> AdamState:
+def clip_adam_step(params, grads, state: AdamState, lr,
+                   max_grad_norm: float, corrections=None) -> AdamState:
     """One step of optax's `chain(clip_by_global_norm(max_grad_norm),
     adam(lr, eps=1e-5))` for K policies, applied to `params` in place
     (under no_grad).  Every tensor has a leading member axis (a single
     policy is K = 1) and each member's gradient is clipped by its own
     global norm, as optax's clip is under `jax.vmap`; Adam is
-    elementwise."""
+    elementwise.
+
+    `lr` and `corrections`, Adam's bias corrections (1 - b1 ** n,
+    1 - b2 ** n) of this step n = count + 1 (None: from the count, on the
+    host), are host floats or 0-d tensors on the device; the minibatch
+    step passes tensors, which a captured graph reads at each replay."""
     K = grads[0].shape[0]
     g_norm = torch.linalg.vector_norm(
         torch.cat([g.reshape(K, -1) for g in grads], dim=1), dim=1)
@@ -174,14 +182,24 @@ def clip_adam_step(params, grads, state: AdamState, lr: float,
     torch._foreach_mul_(nu, ADAM_B2)
     torch._foreach_addcmul_(nu, grads, grads, 1 - ADAM_B2)
     count = state.count + 1
-    mu_hat = torch._foreach_div(mu, 1 - ADAM_B1 ** count)
-    den = torch._foreach_div(nu, 1 - ADAM_B2 ** count)
+    bc1, bc2 = bias_corrections(count) if corrections is None \
+        else corrections
+    mu_hat = torch._foreach_div(mu, bc1)
+    den = torch._foreach_div(nu, bc2)
     torch._foreach_sqrt_(den)
     torch._foreach_add_(den, ADAM_EPS)
     torch._foreach_div_(mu_hat, den)
+    # optax's order: the update scaled by -lr, then added
+    torch._foreach_mul_(mu_hat, lr)
     with torch.no_grad():
-        torch._foreach_add_(params, mu_hat, alpha=-lr)
+        torch._foreach_sub_(params, mu_hat)
     return AdamState(count, mu, nu)
+
+
+def bias_corrections(count: int) -> tuple:
+    """Adam's bias corrections (1 - b1 ** count, 1 - b2 ** count) of
+    optimizer step `count` (the first is 1), on the host."""
+    return 1 - ADAM_B1 ** count, 1 - ADAM_B2 ** count
 
 
 def linear_schedule(init_value: float, end_value: float,
@@ -348,6 +366,223 @@ def ppo_loss(net, batch: Transition, advantages, returns, ppo: PPOConfig,
     return total, (pg_loss, v_loss, ent)
 
 
+class StepInputs(NamedTuple):
+    """What one optimizer step reads, on the training device: the rollout
+    as the minibatch gathers take it (`batch`, `advantages`, `returns`),
+    the member indices `members` (K, 1), a row a step of the minibatch
+    indices `takes` (S, K, mb_size) and of the host's scalars `scalars`
+    (S, 3: the learning rate and Adam's two bias corrections), the step
+    `cursor` (1,), and `aux` (S, 3, K), each step's loss terms."""
+    batch: Transition
+    advantages: torch.Tensor
+    returns: torch.Tensor
+    members: torch.Tensor
+    takes: torch.Tensor
+    scalars: torch.Tensor
+    cursor: torch.Tensor
+    aux: torch.Tensor
+
+
+class _Captured(NamedTuple):
+    key: tuple
+    held: list              # the tensors whose storages `key` names
+    inputs: StepInputs      # the static inputs the graph reads
+    graph: Any              # torch.cuda.CUDAGraph
+
+
+def step_graphable(device: torch.device, ranks: int) -> bool:
+    """Whether the minibatch step runs as a CUDA graph: on a CUDA device,
+    with no collective inside the step (a sharded loss all-reduces inside
+    it, and gloo's all-reduce cannot be captured)."""
+    return device.type == "cuda" and ranks == 1
+
+
+def graph_key(net, opt_state: AdamState, traj: Transition, perms) -> tuple:
+    """What a captured minibatch step holds for: the shapes and dtypes of
+    the rollout and the permutations, the storages of the policy's
+    parameters and buffers and of Adam's moments (a new `init`,
+    `adam_init` or a checkpoint that replaces tensors captures again), and
+    the float32 matmul precision, which the capture fixes."""
+    return (tuple((x.shape, x.dtype) for x in (*traj, perms)),
+            tuple(t.data_ptr() for t in _state_tensors(net, opt_state)),
+            torch.get_float32_matmul_precision())
+
+
+def _state_tensors(net, opt_state: AdamState) -> list:
+    return [*net.parameters(), *net.buffers(), *opt_state.mu, *opt_state.nu]
+
+
+class MinibatchSteps:
+    """The `update_epochs x num_minibatches` optimizer steps of an update
+    of K = `num_members` policies (`make_update`'s), as ONE step body
+    (`_step`): the gather of the minibatch, `ppo_loss`, its gradient (its
+    flattened all-reduce over the ranks of `loss_mesh`), the clip and
+    Adam.  The body reads everything from a `StepInputs`, into which
+    each update copies its rollout, its permutations' slices and its
+    table of scalars (filled on the host, one copy): a step's row of
+    each is picked by a cursor on the device that the body advances.
+
+    Where `step_graphable` (a CUDA device, no collective in the step),
+    the body is captured once a `graph_key` as a CUDA graph, whose static
+    inputs those are, and replayed for every later step: the first step
+    of a new key runs eagerly on a side stream (the warm-up, a real
+    step), then the capture.  After the replays each parameter's and
+    moment's `_version` is advanced (autograd cannot see a replay's
+    writes).  Elsewhere every step calls the body eagerly."""
+
+    def __init__(self, ppo: PPOConfig, num_members: int, lead,
+                 loss_mesh=None):
+        self.ppo, self.K, self.lead = ppo, num_members, lead
+        self.loss_mesh = loss_mesh
+        self.ranks, self.reduce = ranks_of(loss_mesh)
+        self.steps = ppo.update_epochs * ppo.num_minibatches
+        self.lr_at = learning_rate(ppo)
+        self._captured = None   # _Captured | None
+
+    def key(self, net, opt_state: AdamState, traj: Transition, perms):
+        """The update's `graph_key`, or None where its steps run
+        eagerly."""
+        if not step_graphable(traj.obs.device, self.ranks):
+            return None
+        return graph_key(net, opt_state, traj, perms)
+
+    def replays(self, key) -> int:
+        """How many of the update of `key`'s steps are replays."""
+        if key is None:
+            return 0
+        if self._captured is not None and self._captured.key == key:
+            return self.steps
+        return self.steps - 1
+
+    def __call__(self, net, opt_state: AdamState, traj: Transition,
+                 advantages, returns, perms, key=None):
+        """The steps on the rollout (`traj`, `advantages`, `returns`; (T,
+        K, E, ...)) with each member's permutations `perms` (K, epochs,
+        n), eagerly where `key` is None: (opt_state, the mean of each
+        step's loss terms (3, K))."""
+        device = traj.obs.device
+        params = list(net.parameters())
+        views = [self.lead(p.detach()) for p in params]
+        moments = AdamState(opt_state.count,
+                            [self.lead(m) for m in opt_state.mu],
+                            [self.lead(v) for v in opt_state.nu])
+        mb_size = perms.shape[-1] // self.ppo.num_minibatches
+        # row s = epoch * num_minibatches + i: that epoch's i-th slice
+        takes = perms.reshape(self.K, self.steps, mb_size).transpose(0, 1)
+        table = torch.tensor(
+            [[self.lr_at(c), *bias_corrections(c + 1)] for c in
+             range(opt_state.count, opt_state.count + self.steps)],
+            dtype=opt_state.mu[0].dtype)
+        if device.type == "cuda":
+            # pinned, so that its copy does not wait for the device
+            table = table.pin_memory()
+        rollout = self._layout(traj, advantages, returns)
+        if self._captured is not None and self._captured.key != key:
+            self._captured = None    # its memory goes before more is taken
+        inp = self._captured.inputs if self._captured is not None \
+            else self._inputs(rollout, takes, table)
+        batch, advantages, returns = rollout
+        for dst, src in zip((*inp.batch, inp.advantages, inp.returns),
+                            (*batch, advantages, returns)):
+            dst.copy_(src)
+        inp.takes.copy_(takes)
+        inp.scalars.copy_(table, non_blocking=True)
+        inp.cursor.zero_()
+        if key is None:
+            for _ in range(self.steps):
+                self._step(net, params, views, moments, inp)
+        else:
+            with torch.cuda.device(device):
+                self._replay(key, net, opt_state, params, views, moments,
+                             inp)
+        return (AdamState(opt_state.count + self.steps, opt_state.mu,
+                          opt_state.nu), inp.aux.mean(dim=0))
+
+    def _inputs(self, rollout, takes, table) -> StepInputs:
+        """`StepInputs` of the update's shapes, on its device."""
+        batch, advantages, returns = rollout
+        device = advantages.device
+        return StepInputs(
+            Transition(*map(torch.empty_like, batch)),
+            torch.empty_like(advantages), torch.empty_like(returns),
+            torch.arange(self.K, device=device)[:, None],
+            takes.new_empty(takes.shape),
+            torch.empty(table.shape, dtype=table.dtype, device=device),
+            torch.zeros(1, dtype=torch.long, device=device),
+            advantages.new_empty((self.steps, 3, self.K)))
+
+    def _layout(self, traj, advantages, returns):
+        """The rollout as the gathers read it: (T, K, E, ...) as it is,
+        or under sb3 minibatching each member's flattened (K, T*E, ...)."""
+        if not self.ppo.sb3_minibatching:
+            return traj, advantages, returns
+        per_member = lambda x: x.transpose(0, 1).reshape(
+            (self.K, -1) + x.shape[3:])
+        return (Transition(*map(per_member, traj)), per_member(advantages),
+                per_member(returns))
+
+    def _gather(self, x, take, members):
+        """Each member's minibatch `take` (K, mb_size) of `x`."""
+        if self.ppo.sb3_minibatching:
+            return x[members, take]
+        # merge (T_mb, E) ENV-MAJOR within each member, as the JAX
+        # package does
+        return x[take, members].transpose(1, 2).reshape(
+            (self.K, -1) + x.shape[3:])
+
+    def _step(self, net, params, views, moments: AdamState,
+              inp: StepInputs):
+        """One optimizer step, the one `inp.cursor` points at, which it
+        advances; its loss terms go to that row of `inp.aux`."""
+        take = inp.takes.index_select(0, inp.cursor)[0]
+        lr, bc1, bc2 = inp.scalars.index_select(0, inp.cursor)[0].unbind()
+        gather = lambda x: self._gather(x, take, inp.members)
+        with ieee_fp32_convs():
+            # the policy's `forward` itself, not its hooks: a capture
+            # would record a hook's work without doing it, and a replay
+            # runs none
+            total_loss, terms = ppo_loss(
+                net.forward, Transition(*map(gather, inp.batch)),
+                gather(inp.advantages), gather(inp.returns), self.ppo,
+                self.loss_mesh)
+            grads = torch.autograd.grad(total_loss.sum(), params)
+        if self.ranks > 1:
+            flat = self.reduce(torch.cat([g.reshape(-1) for g in grads]))
+            grads = [x.view_as(g) for x, g in zip(
+                flat.split([g.numel() for g in grads]), grads)]
+        clip_adam_step(views, [self.lead(g) for g in grads], moments, lr,
+                       self.ppo.max_grad_norm, (bc1, bc2))
+        inp.aux.index_copy_(0, inp.cursor,
+                            torch.stack([x.detach() for x in terms])[None])
+        inp.cursor.add_(1)
+
+    def _replay(self, key, net, opt_state, params, views, moments,
+                inp: StepInputs):
+        """The steps through the graph of `key`, reading `inp`: where the
+        key is new, the first step eagerly on a side stream, then the
+        capture."""
+        first = 0
+        if self._captured is None:
+            here = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(here)
+            with torch.cuda.stream(side):
+                self._step(net, params, views, moments, inp)
+            here.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                self._step(net, params, views, moments, inp)
+            self._captured = _Captured(key, _state_tensors(net, opt_state),
+                                       inp, graph)
+            first = 1
+        for _ in range(first, self.steps):
+            self._captured.graph.replay()
+        if first < self.steps:
+            # the replays' writes, which autograd cannot see
+            for t in (*params, *opt_state.mu, *opt_state.nu):
+                torch.autograd.graph.increment_version(t)
+
+
 def make_update(ppo: PPOConfig, step, num_members: int, lead, mesh=None):
     """One PPO update of K = `num_members` policies, each on its own E
     envs of `step` (as `make_env` returns it).  `lead` views a parameter,
@@ -357,11 +592,13 @@ def make_update(ppo: PPOConfig, step, num_members: int, lead, mesh=None):
     run(net, opt_state, env_state, obs (K, E, D), draws, after_rollout)
     -> ((opt_state, env_state, obs), metrics): a rollout of
     `rollout_steps` control steps, its GAE, then `update_epochs x
-    num_minibatches` optimizer steps.  `draws` is a `Draws` with a leading
-    member axis; each member gathers its minibatches with its own
-    permutations, so member k's update is what a single run makes of its
-    weights and draws.  The total loss is the SUM of the members' losses,
-    so each member's gradient is its own.  Every metric is (K,).
+    num_minibatches` optimizer steps (`MinibatchSteps`: a CUDA graph's
+    replays on the card, where no collective lies inside the step).
+    `draws` is a `Draws` with a leading member axis; each member gathers
+    its minibatches with its own permutations, so member k's update is
+    what a single run makes of its weights and draws.  The total loss is
+    the SUM of the members' losses, so each member's gradient is its own.
+    Every metric is (K,), a tensor of this update's own.
 
     `mesh`: one policy (K = 1) trained data-parallel over R ranks, `step`
     this rank's columns of the global env and `draws.noise` its columns
@@ -374,12 +611,13 @@ def make_update(ppo: PPOConfig, step, num_members: int, lead, mesh=None):
 
     Spans (`utils.profiling.span`): `ppo.update` around the whole, and
     inside it `ppo.rollout`, `ppo.gae` (with the sb3 gather) and
-    `ppo.optimize` (the optimizer steps and the metrics' reduce)."""
+    `ppo.optimize` (the optimizer steps and the metrics' reduce; its
+    attribute `graph_steps` counts the steps that ran as a replay)."""
     K, T = num_members, ppo.rollout_steps
-    lr_at = learning_rate(ppo)
     # under sb3 minibatching every rank steps the gathered batch alone
     loss_mesh = None if ppo.sb3_minibatching else mesh
     ranks, reduce = ranks_of(loss_mesh)
+    steps = MinibatchSteps(ppo, K, lead, loss_mesh)
 
     def run(net, opt_state: AdamState, env_state, obs, draws: Draws,
             after_rollout=None):
@@ -401,70 +639,28 @@ def make_update(ppo: PPOConfig, step, num_members: int, lead, mesh=None):
                     returns = global_env_batch(mesh, returns, 2)
             if after_rollout is not None:
                 after_rollout()
-            with span("ppo.optimize"):
-                opt_state, metrics = optimize(net, opt_state, traj,
-                                              advantages, returns, draws)
+            key = steps.key(net, opt_state, traj, draws.perms)
+            with span("ppo.optimize", graph_steps=steps.replays(key)):
+                opt_state, aux = steps(net, opt_state, traj, advantages,
+                                       returns, draws.perms, key)
+                metrics = summarize(traj, aux)
         return (opt_state, env_state, obs), metrics
 
-    def optimize(net, opt_state, traj, advantages, returns, draws):
-        """`update_epochs x num_minibatches` optimizer steps on the
-        rollout, then the metrics: (opt_state, metrics)."""
-        # ---- minibatching: each member gathers with its own permutation
+    def summarize(traj, aux):
+        """The update's metrics from the rollout and the steps' mean loss
+        terms (3, K)."""
         E = traj.obs.shape[2]
-        members = torch.arange(K, device=traj.obs.device)[:, None]
-        if ppo.sb3_minibatching:
-            mb_size = T * E // ppo.num_minibatches
-            per_member = lambda x: x.transpose(0, 1).reshape(
-                (K, T * E) + x.shape[3:])
-            batch = Transition(*(per_member(x) for x in traj))
-            advantages, returns = per_member(advantages), per_member(returns)
-            gather = lambda x, take: x[members, take]
-        else:
-            mb_size = max(1, T // ppo.num_minibatches)
-            batch = traj
-            # merge (T_mb, E) ENV-MAJOR within each member, as the JAX
-            # package does
-            gather = lambda x, take: x[take, members].transpose(1, 2) \
-                .reshape((K, -1) + x.shape[3:])
-
-        params = list(net.parameters())
-        views = [lead(p.detach()) for p in params]
-        mu, nu = opt_state.mu, opt_state.nu
-        state = AdamState(opt_state.count, [lead(m) for m in mu],
-                          [lead(v) for v in nu])
-        aux = []
-        for epoch in range(ppo.update_epochs):
-            perm = draws.perms[:, epoch]
-            for i in range(ppo.num_minibatches):
-                take = perm[:, i * mb_size:(i + 1) * mb_size]
-                mb = Transition(*(gather(x, take) for x in batch))
-                with ieee_fp32_convs():
-                    total_loss, terms = ppo_loss(
-                        net, mb, gather(advantages, take),
-                        gather(returns, take), ppo, loss_mesh)
-                    grads = torch.autograd.grad(total_loss.sum(), params)
-                if ranks > 1:
-                    flat = reduce(
-                        torch.cat([g.reshape(-1) for g in grads]))
-                    grads = [x.view_as(g) for x, g in zip(
-                        flat.split([g.numel() for g in grads]), grads)]
-                state = clip_adam_step(
-                    views, [lead(g) for g in grads], state,
-                    lr_at(state.count), ppo.max_grad_norm)
-                aux.append(torch.stack([x.detach() for x in terms]))
-        aux = torch.stack(aux).mean(dim=0)                    # (3, K)
         # this rank's shares of the means, summed over the ranks in one go
         means = torch.stack([traj.reward.sum(dim=(0, 2)),
                              traj.value.sum(dim=(0, 2))]) / (T * E * ranks)
         means, aux = reduce(torch.cat([means, aux])).split([2, 3])
-        metrics = {
+        return {
             "mean_reward": means[0],
             "mean_value": means[1],
             "pg_loss": aux[0],
             "v_loss": aux[1],
             "entropy": aux[2],
         }
-        return AdamState(state.count, mu, nu), metrics
     return run
 
 

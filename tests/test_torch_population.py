@@ -162,10 +162,10 @@ def test_loss_and_clip_are_per_member(limit, monkeypatch):
     the root) turns into other steps.  Both would break the parity."""
     norms, real = [], tppo.clip_adam_step
 
-    def spy(params, grads, state, lr, max_grad_norm):
+    def spy(params, grads, *rest):
         norms.append(torch.linalg.vector_norm(torch.cat(
             [g.flatten(1) for g in grads], dim=1), dim=1).tolist())
-        return real(params, grads, state, lr, max_grad_norm)
+        return real(params, grads, *rest)
     monkeypatch.setattr(tppo, "clip_adam_step", spy)
     _hold_members("batched", seed=0, max_grad_norm=limit)
     above = [[n > limit for n in step] for step in norms if len(step) == K]
