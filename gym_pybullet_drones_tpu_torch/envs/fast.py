@@ -150,6 +150,9 @@ def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
     caller kept (the trainer's `TrainState.reset_noise`), so that a reset
     in between (an evaluation) does not move the caller's draws.
 
+    Each call of step_fn is a span `env.batched_step`
+    (`utils.profiling.span`).
+
     obs_layout: "drone" -> obs (B, N, D) (reference per-drone layout);
     "flat" -> obs (B, N*D).
 
@@ -250,36 +253,39 @@ def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
             last_rpm=rpm, ctrl_state=new_pid), (obs12[0] if obs12 else None)
 
     def step_fn(flat: core.EnvState, action):
-        action = torch.as_tensor(action, dtype=torch.float32, device=device)
-        a = action.reshape(bn, act_dim)
-        if buf_len > 0:
-            flat = flat._replace(action_buffer=torch.cat(
-                [flat.action_buffer[:, act_dim:], a], dim=-1))
-        if fused_pid:
-            flat, obs12 = _pid_physics(flat, a)
-        else:
-            rpm, flat = task._map_to_rpm(cfg, flat, a)
-            flat, obs12 = _physics(flat, rpm)
-        # hooks see the PRE-increment counter (reference BaseAviary.py:376-382)
-        obs, reward, term, trunc = task.flat_post(cfg, flat, num_envs, n,
-                                                  obs12=obs12)
-        flat = flat._replace(
-            step_counter=flat.step_counter + cfg.steps_per_ctrl)
-        if not autoreset:
-            return flat, _finalize_obs(obs), reward, term, trunc
-        done = torch.logical_or(term, trunc)                   # (B,)
-        done_bn = done.repeat_interleave(n)                    # (B*N,)
+        with span("env.batched_step"):
+            action = torch.as_tensor(action, dtype=torch.float32,
+                                     device=device)
+            a = action.reshape(bn, act_dim)
+            if buf_len > 0:
+                flat = flat._replace(action_buffer=torch.cat(
+                    [flat.action_buffer[:, act_dim:], a], dim=-1))
+            if fused_pid:
+                flat, obs12 = _pid_physics(flat, a)
+            else:
+                rpm, flat = task._map_to_rpm(cfg, flat, a)
+                flat, obs12 = _physics(flat, rpm)
+            # hooks see the PRE-increment counter (reference
+            # BaseAviary.py:376-382)
+            obs, reward, term, trunc = task.flat_post(
+                cfg, flat, num_envs, n, obs12=obs12)
+            flat = flat._replace(
+                step_counter=flat.step_counter + cfg.steps_per_ctrl)
+            if not autoreset:
+                return flat, _finalize_obs(obs), reward, term, trunc
+            done = torch.logical_or(term, trunc)               # (B,)
+            done_bn = done.repeat_interleave(n)                # (B*N,)
 
-        def pick(i, nxt):
-            # per-drone leaves (B*N, k) reset by drone row, the counter
-            # (B,) by env
-            d = done_bn if nxt.dim() > 1 else done
-            return torch.where(d.reshape((-1,) + (1,) * (nxt.dim() - 1)),
-                               i, nxt)
-        reset_flat, reset_obs = _reset_state()
-        flat = core.map_leaves(pick, reset_flat, flat)
-        obs = torch.where(done_bn[:, None], reset_obs, obs)
-        return flat, _finalize_obs(obs), reward, term, trunc
+            def pick(i, nxt):
+                # per-drone leaves (B*N, k) reset by drone row, the counter
+                # (B,) by env
+                d = done_bn if nxt.dim() > 1 else done
+                return torch.where(
+                    d.reshape((-1,) + (1,) * (nxt.dim() - 1)), i, nxt)
+            reset_flat, reset_obs = _reset_state()
+            flat = core.map_leaves(pick, reset_flat, flat)
+            obs = torch.where(done_bn[:, None], reset_obs, obs)
+            return flat, _finalize_obs(obs), reward, term, trunc
 
     def use_reset_noise(stream: ResetNoise) -> None:
         nonlocal noise

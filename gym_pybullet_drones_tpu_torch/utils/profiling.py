@@ -2,8 +2,10 @@
 measurement.
 
 `span(name, **attrs)` marks one piece of the program's work (an update's
-phases in `rl/ppo.py`, the fused env step in `envs/fast.py` and
-`ops/kernel_fused.py`, the collectives in `parallel/mesh.py`).  It has
+phases in `rl/ppo.py`, the fused and the batched env step in
+`envs/fast.py`, the kernel wrappers `ops/kernel_fused.py`,
+`ops/kernel_dyn.py` and `ops/kernel_render.py`, the collectives in
+`parallel/mesh.py`).  It has
 three states, and nothing but the code around it chooses among them:
 
 - off (the default): `span` returns one shared no-op object; no clock is

@@ -4,17 +4,20 @@ aggregates, the spans one PPO update makes, outputs bit for bit with
 tracing on and off, and the spans as `user_annotation` ranges in a
 `torch.profiler` trace.  The update is Hover on DYN physics through the
 fused path's plain version, 16 envs x 8 steps, 2 minibatches x 2
-epochs."""
+epochs; the batched step's spans (`env.batched_step` and the kernel
+wrappers' `kernel.dyn_ctrl_step` and `kernel.render`) come from one RGB
+step of Hover on DYN with ONE_D_RPM actions, 3 envs."""
 import json
 
 import pytest
 import torch
 
 from gym_pybullet_drones_tpu_torch import params as P
-from gym_pybullet_drones_tpu_torch.envs import AviaryConfig, HoverTask
+from gym_pybullet_drones_tpu_torch.envs import AviaryConfig, HoverTask, fast
 from gym_pybullet_drones_tpu_torch.rl import PPOConfig, make_train
 from gym_pybullet_drones_tpu_torch.utils import profiling
-from gym_pybullet_drones_tpu_torch.utils.enums import ActionType, Physics
+from gym_pybullet_drones_tpu_torch.utils.enums import (
+    ActionType, ObservationType, Physics)
 
 PHASES = ("ppo.update", "ppo.rollout", "ppo.gae", "ppo.optimize")
 T = 8
@@ -131,3 +134,72 @@ def test_tracing_leaves_outputs_bit_for_bit(trainer, tmp_path):
         assert names.count(name) == 1, name
     assert names.count("env.fused_step") == T
     assert names.count("kernel.fused_env_step") == T
+
+
+BATCHED = ("env.batched_step", "kernel.dyn_ctrl_step", "kernel.render")
+
+
+def rgb_step():
+    """A call of one RGB batched step from the reset, 3 envs."""
+    cfg = AviaryConfig(P.CF2X, 1, Physics.DYN, 240, 30)
+    task = HoverTask(act=ActionType.ONE_D_RPM, obs=ObservationType.RGB)
+    reset_fn, step_fn = fast.make_batched_step(cfg, task, 3,
+                                               obs_layout="flat",
+                                               device="cpu")
+    state, _ = reset_fn()
+    action = torch.full((3, 1, 1), 0.5)
+    return lambda: step_fn(state, action)
+
+
+def leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [x for t in tree for x in leaves(t)]
+
+
+def test_batched_step_spans_and_attributes():
+    step = rgb_step()
+    with profiling.recording() as rec:
+        step()
+    got = rec.summary()
+    assert {name: got[name]["count"] for name in got} == {
+        name: 1 for name in BATCHED}
+    assert got["kernel.render"]["attrs"] == {"cameras": 3}
+    assert got["kernel.dyn_ctrl_step"]["attrs"] == {"columns": 3}
+    assert got["env.batched_step"]["attrs"] == {}
+    parents = {(name, parent) for name, parent, *_ in rec.spans}
+    assert parents == {("env.batched_step", None),
+                       ("kernel.dyn_ctrl_step", "env.batched_step"),
+                       ("kernel.render", "env.batched_step")}
+
+
+def test_batched_step_spans_off_make_nothing(monkeypatch):
+    """With tracing off the step's spans are the shared no-op: no span
+    object is made; recording on makes the three."""
+    step = rgb_step()
+    made = []
+    real = profiling._Span
+
+    def spy(name, attrs, record):
+        made.append(name)
+        return real(name, attrs, record)
+    monkeypatch.setattr(profiling, "_Span", spy)
+    step()
+    assert made == []
+    with profiling.recording():
+        step()
+    assert sorted(made) == sorted(BATCHED)
+
+
+def test_batched_step_bit_for_bit_with_tracing(tmp_path):
+    step = rgb_step()
+    off = step()
+    with profiling.trace(str(tmp_path)), profiling.recording():
+        on = step()
+    assert len(leaves(off)) == len(leaves(on))
+    for a, b in zip(leaves(off), leaves(on)):
+        assert torch.equal(a, b)
+    with open(tmp_path / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    assert sorted(names) == sorted(BATCHED)
