@@ -28,6 +28,7 @@ import torch
 from gym_pybullet_drones_tpu_torch.params import DroneParams, G, get_params
 from gym_pybullet_drones_tpu_torch.utils.enums import DroneModel
 from gym_pybullet_drones_tpu_torch.utils.device import resolve_device
+from gym_pybullet_drones_tpu_torch.utils.graphs import constant
 from gym_pybullet_drones_tpu_torch.ops import quat as quat_ops
 
 # Gains and PWM constants (reference DSLPIDControl.py:37-46)
@@ -106,9 +107,9 @@ def compute_control(params: DroneParams, state: PIDState, dt: float,
         target_rpy_rates = torch.zeros_like(cur_pos)
 
     gains = gains or {}
-    vec = lambda key, default: torch.tensor(
+    vec = lambda key, default: constant(
         default if gains.get(key) is None else tuple(gains[key]),
-        dtype=cur_pos.dtype, device=cur_pos.device)
+        cur_pos.dtype, cur_pos.device)
     p_for, i_for, d_for = (vec("p_for", P_FOR), vec("i_for", I_FOR),
                            vec("d_for", D_FOR))
     p_tor, i_tor, d_tor = (vec("p_tor", P_TOR), vec("i_tor", I_TOR),
@@ -163,8 +164,8 @@ def compute_control(params: DroneParams, state: PIDState, dt: float,
     target_torques = torch.clamp(
         -p_tor * rot_e + d_tor * rpy_rates_e + i_tor * integral_rpy_e,
         -3200.0, 3200.0)
-    mixer = torch.tensor(mixer_of(params), dtype=cur_pos.dtype,
-                         device=cur_pos.device)                # (4, 3)
+    mixer = constant(mixer_of(params), cur_pos.dtype,
+                     cur_pos.device)                           # (4, 3)
     pwm = thrust[..., None] + torch.sum(
         mixer * target_torques[..., None, :], dim=-1)
     pwm = torch.clamp(pwm, MIN_PWM, MAX_PWM)

@@ -33,6 +33,7 @@ import torch
 
 from gym_pybullet_drones_tpu_torch.params import DroneParams
 from gym_pybullet_drones_tpu_torch.utils.device import resolve_device
+from gym_pybullet_drones_tpu_torch.utils.graphs import constant
 from gym_pybullet_drones_tpu_torch.utils.enums import Physics
 from gym_pybullet_drones_tpu_torch.ops import aero, quat as quat_ops
 from gym_pybullet_drones_tpu_torch.ops.dynamics import DynState, dyn_step
@@ -132,7 +133,7 @@ class AviaryConfig:
         `device=None` is the CUDA card, as everywhere in the package."""
         device = resolve_device(device)
         if self.init_xyzs is not None:
-            return torch.tensor(self.init_xyzs, dtype=dtype, device=device)
+            return constant(self.init_xyzs, dtype, device).clone()
         d = self.drone
         i = torch.arange(self.num_drones, dtype=dtype, device=device)
         return torch.stack(

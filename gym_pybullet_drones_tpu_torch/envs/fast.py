@@ -21,11 +21,14 @@ configuration used by benchmarks and large-scale training.  Two entry points:
   whole control step is ONE kernel launch (`ops/kernel_fused.py`).
 
 Where the JAX package scans on the device, a rollout here is a Python loop
-with one launch per control step; each takes the `device` the
-state lives on (None = the CUDA card; "cpu" runs the kernels' plain PyTorch
-versions).
+with one launch per control step (on the card the PyTorch operations of
+`make_batched_step`'s step replay as CUDA graphs between its kernels);
+each takes the `device` the state lives on (None = the CUDA card; "cpu"
+runs the kernels' plain PyTorch versions).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -36,6 +39,7 @@ from gym_pybullet_drones_tpu_torch.ops import (
 from gym_pybullet_drones_tpu_torch.ops.dynamics import DynState
 from gym_pybullet_drones_tpu_torch.ops.kernel_fused import PID_FAMILY
 from gym_pybullet_drones_tpu_torch.params import CF2X
+from gym_pybullet_drones_tpu_torch.utils import graphs
 from gym_pybullet_drones_tpu_torch.utils.device import resolve_device
 from gym_pybullet_drones_tpu_torch.utils.enums import (
     ObservationType, Physics)
@@ -99,6 +103,130 @@ class ResetNoise:
         self.block = None if block is None else block.to(self.device).clone()
 
 
+class _StepOut(NamedTuple):
+    """What one control step of `make_batched_step` computes on the flat
+    carry: the next state, the obs (B*N, D) before `obs_layout`, and the
+    reward, terminated and truncated flags (B,)."""
+    state: core.EnvState
+    obs: torch.Tensor
+    reward: torch.Tensor
+    term: torch.Tensor
+    trunc: torch.Tensor
+
+
+def batched_step_graphable(device: torch.device, task) -> bool:
+    """Whether `make_batched_step`'s control step runs as the replay of
+    CUDA graphs: on a CUDA device, for a task whose resets are
+    deterministic (a reset-noise stream draws on the host every
+    `ResetNoise.BLOCK` steps, which a capture would freeze)."""
+    return device.type == "cuda" and not core.has_reset_noise(task)
+
+
+def _order(t: torch.Tensor) -> tuple:
+    """What an operation that reads `t` sees of its layout: the device,
+    dtype, shape and the strides of the dims longer than one."""
+    strides = () if t.numel() == 0 else tuple(
+        s for s, k in zip(t.stride(), t.shape) if k > 1)
+    return t.device, t.dtype, t.shape, strides
+
+
+class _StepGraph:
+    """`make_batched_step`'s control step (`body`) captured as
+    `utils.graphs.Segments`: CUDA graphs of the step's PyTorch operations,
+    with its hand-written kernels launched eagerly between them.
+
+    The graphs read the state and the action from static tensors, write
+    the next state over the state (the auto-reset's selects, `body`'s
+    `into`) and keep the obs, reward and flags in their pool.  The static
+    state is laid out as the eager step's results, so the graphs compute
+    what the eager step computes on such inputs (the step's reductions
+    follow their inputs' order of strides).  A replay copies the action
+    in, replays, and copies the results out into fresh tensors, one
+    `_foreach_copy_` a dtype: a returned tensor is never written again.
+    The state comes in by one copy a leaf, or by none where the caller
+    passes back the state that the last replay returned, unwritten since,
+    which the static state holds."""
+
+    def __init__(self, segments, action, out: _StepOut):
+        self.segments, self.action, self.out = segments, action, out
+        self._state = core.leaves(out.state)
+        self._outs = core.leaves(out)
+        by_dtype = {}
+        for i, t in enumerate(self._outs):
+            by_dtype.setdefault(t.dtype, []).append(i)
+        self._by_dtype = list(by_dtype.values())
+        # (the state the static state holds, its leaves with their versions)
+        self._fed = None
+
+    @classmethod
+    def capture(cls, body, flat: core.EnvState, a: torch.Tensor):
+        """(the call's result; the graph of the step): the step runs
+        eagerly on a side stream (the warm-up), its results are copied
+        into the static state (every copy the capture makes), then the
+        capture."""
+        with torch.cuda.device(a.device):
+            here = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(here)
+            with torch.cuda.stream(side), torch.no_grad():
+                result = body(flat, a)
+                state = core.map_leaves(torch.empty_like, result.state)
+                action = a.clone(memory_format=torch.contiguous_format)
+                for dst, src in zip(core.leaves(state),
+                                    core.leaves(result.state)):
+                    dst.copy_(src)
+                with graphs.Segments() as segments:
+                    got = body(state, action, into=state)
+                    for dst, src in zip(core.leaves(state),
+                                        core.leaves(got.state)):
+                        dst.copy_(src)
+            here.wait_stream(side)
+            for t in core.leaves(result) + core.leaves(state) + [action]:
+                t.record_stream(here)
+        return result, cls(segments, action, got._replace(state=state))
+
+    def accepts(self, flat: core.EnvState, action) -> bool:
+        """Whether a call can replay: the action a contiguous float32
+        tensor of the static action's size on its device that needs no
+        gradient, and the state the one the static state holds or laid
+        out as it."""
+        want = self.action
+        if not (isinstance(action, torch.Tensor)
+                and action.dtype == want.dtype
+                and action.device == want.device
+                and action.numel() == want.numel()
+                and action.is_contiguous() and not action.requires_grad):
+            return False
+        if self._holds(flat):
+            return True
+        leaves = core.leaves(flat)
+        return len(leaves) == len(self._state) and all(
+            not x.requires_grad and _order(x) == _order(v)
+            for x, v in zip(leaves, self._state))
+
+    def __call__(self, flat: core.EnvState, a: torch.Tensor) -> _StepOut:
+        if not self._holds(flat):
+            for dst, src in zip(self._state, core.leaves(flat), strict=True):
+                dst.copy_(src)
+        self.action.copy_(a)
+        self.segments.replay()
+        fresh = [torch.empty_like(t) for t in self._outs]
+        for group in self._by_dtype:
+            torch._foreach_copy_([fresh[i] for i in group],
+                                 [self._outs[i] for i in group])
+        leaves = iter(fresh)
+        out = core.map_leaves(lambda _: next(leaves), self.out)
+        state = core.leaves(out.state)
+        self._fed = None if state[0].is_inference() else (
+            out.state, [(t, t._version) for t in state])
+        return out
+
+    def _holds(self, flat) -> bool:
+        fed = self._fed
+        return fed is not None and flat is fed[0] and all(
+            t._version == v for t, v in fed[1])
+
+
 def _flat_reset(cfg, task, num_envs: int, device):
     """The deterministic reset tiled to the flat (B*N, k) carry, and its
     obs (B, N, D).  Computed once per call: deterministic resets are a
@@ -150,8 +278,19 @@ def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
     caller kept (the trainer's `TrainState.reset_noise`), so that a reset
     in between (an evaluation) does not move the caller's draws.
 
+    On a CUDA device, for a deterministic task (`batched_step_graphable`),
+    the control step runs as the replay of CUDA graphs (`_StepGraph`):
+    the first call runs the step eagerly and captures it; every later call
+    whose state is laid out as the step's own results replays it (a copy of
+    the action in, the graphs of the PyTorch operations with the physics
+    and render kernels launched eagerly between them, the results copied
+    out into fresh tensors), bit for bit the eager step.  The CPU, a task with reset
+    noise and any other call run the same step eagerly.  Each kernel's
+    launch keeps its wrapper's span and `launches` count on every call.
+
     Each call of step_fn is a span `env.batched_step`
-    (`utils.profiling.span`).
+    (`utils.profiling.span`), whose attribute `graphed` is 1 on a replay
+    and 0 on an eager call.
 
     obs_layout: "drone" -> obs (B, N, D) (reference per-drone layout);
     "flat" -> obs (B, N*D).
@@ -252,40 +391,60 @@ def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
             rpy_rates=out.rpy_rates, ang_v=out.ang_v,
             last_rpm=rpm, ctrl_state=new_pid), (obs12[0] if obs12 else None)
 
-    def step_fn(flat: core.EnvState, action):
-        with span("env.batched_step"):
-            action = torch.as_tensor(action, dtype=torch.float32,
-                                     device=device)
-            a = action.reshape(bn, act_dim)
-            if buf_len > 0:
-                flat = flat._replace(action_buffer=torch.cat(
-                    [flat.action_buffer[:, act_dim:], a], dim=-1))
-            if fused_pid:
-                flat, obs12 = _pid_physics(flat, a)
-            else:
-                rpm, flat = task._map_to_rpm(cfg, flat, a)
-                flat, obs12 = _physics(flat, rpm)
-            # hooks see the PRE-increment counter (reference
-            # BaseAviary.py:376-382)
-            obs, reward, term, trunc = task.flat_post(
-                cfg, flat, num_envs, n, obs12=obs12)
-            flat = flat._replace(
-                step_counter=flat.step_counter + cfg.steps_per_ctrl)
-            if not autoreset:
-                return flat, _finalize_obs(obs), reward, term, trunc
-            done = torch.logical_or(term, trunc)               # (B,)
-            done_bn = done.repeat_interleave(n)                # (B*N,)
+    def body(flat: core.EnvState, a: torch.Tensor, into=None) -> _StepOut:
+        """One control step on the flat carry and the flat action (B*N,
+        A).  `into` (an EnvState, or None): where the auto-reset's selects
+        write the next state."""
+        if buf_len > 0:
+            flat = flat._replace(action_buffer=torch.cat(
+                [flat.action_buffer[:, act_dim:], a], dim=-1))
+        if fused_pid:
+            flat, obs12 = _pid_physics(flat, a)
+        else:
+            rpm, flat = task._map_to_rpm(cfg, flat, a)
+            flat, obs12 = _physics(flat, rpm)
+        # hooks see the PRE-increment counter (reference
+        # BaseAviary.py:376-382)
+        obs, reward, term, trunc = task.flat_post(
+            cfg, flat, num_envs, n, obs12=obs12)
+        flat = flat._replace(
+            step_counter=flat.step_counter + cfg.steps_per_ctrl)
+        if not autoreset:
+            return _StepOut(flat, obs, reward, term, trunc)
+        done = torch.logical_or(term, trunc)                   # (B,)
+        done_bn = done.repeat_interleave(n)                    # (B*N,)
 
-            def pick(i, nxt):
-                # per-drone leaves (B*N, k) reset by drone row, the counter
-                # (B,) by env
-                d = done_bn if nxt.dim() > 1 else done
-                return torch.where(
-                    d.reshape((-1,) + (1,) * (nxt.dim() - 1)), i, nxt)
-            reset_flat, reset_obs = _reset_state()
+        def pick(i, nxt, dst=None):
+            # per-drone leaves (B*N, k) reset by drone row, the counter
+            # (B,) by env
+            d = done_bn if nxt.dim() > 1 else done
+            return torch.where(
+                d.reshape((-1,) + (1,) * (nxt.dim() - 1)), i, nxt, out=dst)
+        reset_flat, reset_obs = _reset_state()
+        if into is None:
             flat = core.map_leaves(pick, reset_flat, flat)
-            obs = torch.where(done_bn[:, None], reset_obs, obs)
-            return flat, _finalize_obs(obs), reward, term, trunc
+        else:
+            flat = core.map_leaves(pick, reset_flat, flat, into)
+        obs = torch.where(done_bn[:, None], reset_obs, obs)
+        return _StepOut(flat, obs, reward, term, trunc)
+
+    graphable = batched_step_graphable(device, task)
+    graph = None    # the step's `_StepGraph`, from the first graphable call
+
+    def step_fn(flat: core.EnvState, action):
+        nonlocal graph
+        replay = graph is not None and graph.accepts(flat, action)
+        with span("env.batched_step", graphed=int(replay)):
+            a = torch.as_tensor(action, dtype=torch.float32,
+                                device=device).reshape(bn, act_dim)
+            if replay:
+                out = graph(flat, a)
+            elif graphable and graph is None:
+                out, graph = _StepGraph.capture(body, flat, a)
+            else:
+                out = body(flat, a)
+            return (out.state, _finalize_obs(out.obs), out.reward, out.term,
+                    out.trunc)
 
     def use_reset_noise(stream: ResetNoise) -> None:
         nonlocal noise

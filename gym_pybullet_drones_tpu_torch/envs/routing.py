@@ -24,6 +24,7 @@ import dataclasses
 import torch
 
 from gym_pybullet_drones_tpu_torch.params import CF2X
+from gym_pybullet_drones_tpu_torch.utils.graphs import constant
 from gym_pybullet_drones_tpu_torch.utils.enums import (
     ActionType, ObservationType, Physics)
 from gym_pybullet_drones_tpu_torch.ops import quat as quat_ops
@@ -83,8 +84,7 @@ class RoutingTask(RLTask):
     action_scale: float = 0.25
 
     def _dest(self, like: torch.Tensor) -> torch.Tensor:
-        return torch.tensor(self.destinations, dtype=like.dtype,
-                            device=like.device)
+        return constant(self.destinations, like.dtype, like.device)
 
     def obs_dim(self, cfg) -> int:
         # kinematics + action history + goal vector + nearest-neighbor vector

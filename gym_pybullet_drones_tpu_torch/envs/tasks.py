@@ -33,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from gym_pybullet_drones_tpu_torch.params import CF2X
+from gym_pybullet_drones_tpu_torch.utils.graphs import constant
 from gym_pybullet_drones_tpu_torch.utils.enums import (
     ActionType, ObservationType)
 from gym_pybullet_drones_tpu_torch.ops import kernel_render, render
@@ -360,8 +361,7 @@ class HoverTask(RLTask):
         # drone 0 per env (reference HoverAviary scores the single drone)
         pos = flat.pos.reshape(b, n, 3)[:, 0]                  # (B, 3)
         rpy0 = rpy.reshape(b, n, 3)[:, 0]
-        tgt = torch.tensor(self.target_pos, dtype=pos.dtype,
-                           device=pos.device)
+        tgt = constant(tuple(self.target_pos), pos.dtype, pos.device)
         d = torch.linalg.norm(tgt - pos, dim=-1)               # (B,)
         reward = torch.clamp(2.0 - d ** 4, min=0.0)
         term = d < 1e-4

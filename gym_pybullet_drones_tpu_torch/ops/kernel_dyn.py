@@ -57,6 +57,7 @@ from gym_pybullet_drones_tpu_torch import _build
 from gym_pybullet_drones_tpu_torch.params import DroneParams
 from gym_pybullet_drones_tpu_torch.utils.enums import DroneModel
 from gym_pybullet_drones_tpu_torch.ops import kernel_math
+from gym_pybullet_drones_tpu_torch.utils import graphs
 from gym_pybullet_drones_tpu_torch.utils.profiling import span
 
 S = 16  # state rows per column
@@ -231,38 +232,41 @@ def dyn_ctrl_step_rows(params: DroneParams, state_rows: torch.Tensor,
     A CUDA tensor launches the CUDA kernel on the current stream (no
     synchronisation; outputs from `torch.empty`); a CPU tensor runs
     `dyn_ctrl_step_plain`.  Anything the kernel does not take raises.
-    Past the checks, the CPU path or the launch is the span
-    `kernel.dyn_ctrl_step` (`utils.profiling.span`; attribute `columns`,
-    B).
+    The CPU path, or the launch, is the span `kernel.dyn_ctrl_step`
+    (`utils.profiling.span`; attribute `columns`, B); the launch goes
+    through `utils.graphs.launch`.
     """
-    global launches
     check_rows("state_rows", state_rows, S)
     check_rows("rpm_rows", rpm_rows, 4, like=state_rows)
     if n_substeps < 1:
         raise ValueError("n_substeps must be at least 1")
     b = state_rows.shape[1]
-    with span("kernel.dyn_ctrl_step", columns=b):
-        if state_rows.device.type == "cpu":
+    if state_rows.device.type == "cpu":
+        with span("kernel.dyn_ctrl_step", columns=b):
             return dyn_ctrl_step_plain(params, state_rows, rpm_rows,
                                        n_substeps, dt, emit_obs12)
-        if state_rows.device.type != "cuda":
-            raise ValueError(f"unsupported device {state_rows.device}")
-        fn = _build.load()["dyn_ctrl_step"]
-        out = torch.empty_like(state_rows)
-        obs12 = (torch.empty((12, b), dtype=torch.float32,
-                             device=state_rows.device) if emit_obs12
-                 else None)
-        with torch.cuda.device(state_rows.device):
+    if state_rows.device.type != "cuda":
+        raise ValueError(f"unsupported device {state_rows.device}")
+    fn = _build.load()["dyn_ctrl_step"]
+    out = torch.empty_like(state_rows)
+    obs12 = (torch.empty((12, b), dtype=torch.float32,
+                         device=state_rows.device) if emit_obs12 else None)
+    sp = _step_params(params, n_substeps, dt)
+
+    def go():
+        global launches
+        with span("kernel.dyn_ctrl_step", columns=b), \
+                torch.cuda.device(state_rows.device):
             err = fn(state_rows.data_ptr(), rpm_rows.data_ptr(),
                      out.data_ptr(), obs12.data_ptr() if emit_obs12 else None,
-                     b, state_rows.stride(0),
-                     ctypes.byref(_step_params(params, n_substeps, dt)),
+                     b, state_rows.stride(0), ctypes.byref(sp),
                      torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"dyn_ctrl_step launch failed: CUDA error "
                                f"{err}")
         launches += 1
-        return (out, obs12) if emit_obs12 else out
+    graphs.launch(go)
+    return (out, obs12) if emit_obs12 else out
 
 
 def _pack(state) -> torch.Tensor:

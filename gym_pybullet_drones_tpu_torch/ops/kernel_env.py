@@ -83,6 +83,7 @@ from gym_pybullet_drones_tpu_torch.ops.rigid_body import (
     ANGULAR_DAMPING, CONTACT_ERP, CONTACT_SLOP, GROUND_FRICTION,
     LINEAR_DAMPING, SOLVER_ITERATIONS, _prop_coef_pairs)
 from gym_pybullet_drones_tpu_torch.params import DroneParams
+from gym_pybullet_drones_tpu_torch.utils import graphs
 from gym_pybullet_drones_tpu_torch.utils.enums import DroneModel, Physics
 
 GND_MODES = (Physics.PYB_GND, Physics.PYB_GND_DRAG_DW)
@@ -700,8 +701,8 @@ def env_ctrl_step_rows(pid_params, dyn_params: DroneParams, physics: Physics,
     A CUDA tensor launches the CUDA kernel on the current stream (no
     synchronisation; outputs from `torch.empty`); a CPU tensor runs
     `env_ctrl_step_plain`.  Anything the kernel does not take raises.
+    The launch goes through `utils.graphs.launch`.
     """
-    global launches
     use_pid = pid_params is not None
     drag = physics in DRAG_MODES
     check_rows("state_rows", state_rows, S)
@@ -736,16 +737,21 @@ def env_ctrl_step_rows(pid_params, dyn_params: DroneParams, physics: Physics,
     pid_out = new(PR) if use_pid else None
     obs12 = new(12) if emit_obs12 else None
     ptr = lambda t: None if t is None else t.data_ptr()
-    with torch.cuda.device(state_rows.device):
-        err = fn(state_rows.data_ptr(), act_rows.data_ptr(),
-                 ptr(pid_rows if use_pid else None),
-                 ptr(last_rpm_rows if drag else None), out.data_ptr(),
-                 rpm_out.data_ptr(), ptr(pid_out), ptr(obs12),
-                 bn // n_drones, state_rows.stride(0), ctypes.byref(sp),
-                 torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"env_ctrl_step launch failed: CUDA error {err}")
-    launches += 1
+
+    def go():
+        global launches
+        with torch.cuda.device(state_rows.device):
+            err = fn(state_rows.data_ptr(), act_rows.data_ptr(),
+                     ptr(pid_rows if use_pid else None),
+                     ptr(last_rpm_rows if drag else None), out.data_ptr(),
+                     rpm_out.data_ptr(), ptr(pid_out), ptr(obs12),
+                     bn // n_drones, state_rows.stride(0), ctypes.byref(sp),
+                     torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(
+                f"env_ctrl_step launch failed: CUDA error {err}")
+        launches += 1
+    graphs.launch(go)
     return out, rpm_out, pid_out, obs12
 
 

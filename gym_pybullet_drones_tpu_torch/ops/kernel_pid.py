@@ -61,6 +61,7 @@ from gym_pybullet_drones_tpu_torch.utils.enums import DroneModel
 from gym_pybullet_drones_tpu_torch.control import dsl_pid as C
 from gym_pybullet_drones_tpu_torch.ops import kernel_dyn, kernel_math
 from gym_pybullet_drones_tpu_torch.ops.kernel_dyn import S, check_rows
+from gym_pybullet_drones_tpu_torch.utils import graphs
 
 PR = 9    # PID carry rows per column
 TR = 12   # setpoint rows per column
@@ -213,8 +214,8 @@ def pid_dyn_ctrl_step_rows(pid_params: DroneParams, dyn_params: DroneParams,
     A CUDA tensor launches the CUDA kernel on the current stream (no
     synchronisation; outputs from `torch.empty`); a CPU tensor runs
     `pid_dyn_ctrl_step_plain`.  Anything the kernel does not take raises.
+    The launch goes through `utils.graphs.launch`.
     """
-    global launches
     check_rows("state_rows", state_rows, S)
     check_rows("pid_rows", pid_rows, PR, like=state_rows)
     check_rows("tgt_rows", tgt_rows, TR, like=state_rows)
@@ -234,19 +235,22 @@ def pid_dyn_ctrl_step_rows(pid_params: DroneParams, dyn_params: DroneParams,
                                    device=state_rows.device)
     out, pid_out, rpm_out = new(S), new(PR), new(4)
     obs12 = new(12) if emit_obs12 else None
-    with torch.cuda.device(state_rows.device):
-        err = fn(state_rows.data_ptr(), pid_rows.data_ptr(),
-                 tgt_rows.data_ptr(), out.data_ptr(), pid_out.data_ptr(),
-                 rpm_out.data_ptr(),
-                 obs12.data_ptr() if emit_obs12 else None, b,
-                 state_rows.stride(0),
-                 ctypes.byref(_step_params(pid_params, dyn_params,
-                                           n_substeps, pyb_dt, ctrl_dt)),
-                 torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            f"pid_dyn_ctrl_step launch failed: CUDA error {err}")
-    launches += 1
+    sp = _step_params(pid_params, dyn_params, n_substeps, pyb_dt, ctrl_dt)
+
+    def go():
+        global launches
+        with torch.cuda.device(state_rows.device):
+            err = fn(state_rows.data_ptr(), pid_rows.data_ptr(),
+                     tgt_rows.data_ptr(), out.data_ptr(), pid_out.data_ptr(),
+                     rpm_out.data_ptr(),
+                     obs12.data_ptr() if emit_obs12 else None, b,
+                     state_rows.stride(0), ctypes.byref(sp),
+                     torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(
+                f"pid_dyn_ctrl_step launch failed: CUDA error {err}")
+        launches += 1
+    graphs.launch(go)
     res = (out, pid_out, rpm_out)
     return res + (obs12,) if emit_obs12 else res
 

@@ -38,6 +38,7 @@ import torch
 
 from gym_pybullet_drones_tpu_torch import _build
 from gym_pybullet_drones_tpu_torch.ops import render
+from gym_pybullet_drones_tpu_torch.utils import graphs
 from gym_pybullet_drones_tpu_torch.utils.profiling import span
 
 launches = 0  # kernel launches made by `render_drones` (CUDA only)
@@ -103,11 +104,11 @@ def render_drones(params, scene: render.Scene, pos: torch.Tensor,
     W), seg (C, H, W) int32) with `depth_seg`.  A CUDA tensor launches the
     kernel on the current stream (float32 only; no synchronisation;
     outputs from `torch.empty`); a CPU tensor runs `render_drones_plain`
-    in its own dtype.  Anything the kernel does not take raises.  Past
-    the checks, the CPU path or the launch is the span `kernel.render`
-    (`utils.profiling.span`; attribute `cameras`, C).
+    in its own dtype.  Anything the kernel does not take raises.  The
+    CPU path, or the launch, is the span `kernel.render`
+    (`utils.profiling.span`; attribute `cameras`, C); the launch goes
+    through `utils.graphs.launch`.
     """
-    global launches
     for name, t, k in (("pos", pos, 3), ("quat", quat, 4)):
         if not isinstance(t, torch.Tensor) or not t.is_floating_point():
             raise TypeError(f"{name} must be a floating-point tensor")
@@ -122,28 +123,29 @@ def render_drones(params, scene: render.Scene, pos: torch.Tensor,
         raise ValueError(f"{c} cameras do not split into envs of {group}")
     if group > _build.MAX_RENDER_DRONES:
         raise ValueError(f"at most {_build.MAX_RENDER_DRONES} drones an env")
-    with span("kernel.render", cameras=c):
-        if pos.device.type == "cpu":
+    if pos.device.type == "cpu":
+        with span("kernel.render", cameras=c):
             out = render_drones_plain(params, scene, pos, quat, group, width,
                                       height)
-            return out if depth_seg else out[0]
-        if pos.device.type != "cuda":
-            raise ValueError(f"unsupported device {pos.device}")
-        if pos.dtype != torch.float32:
-            raise TypeError(f"the render kernel takes float32, got "
-                            f"{pos.dtype}")
-        fn = _build.load()["render"]
-        npix = width * height
-        rgba = torch.empty((c, npix * 4), dtype=torch.float32,
-                           device=pos.device)
-        depth = seg = None
-        if depth_seg:
-            depth = torch.empty((c, height, width), dtype=torch.float32,
-                                device=pos.device)
-            seg = torch.empty((c, height, width), dtype=torch.int32,
-                              device=pos.device)
-        rp = render_params(params, scene, group, width, height)
-        with torch.cuda.device(pos.device):
+        return out if depth_seg else out[0]
+    if pos.device.type != "cuda":
+        raise ValueError(f"unsupported device {pos.device}")
+    if pos.dtype != torch.float32:
+        raise TypeError(f"the render kernel takes float32, got {pos.dtype}")
+    fn = _build.load()["render"]
+    npix = width * height
+    rgba = torch.empty((c, npix * 4), dtype=torch.float32, device=pos.device)
+    depth = seg = None
+    if depth_seg:
+        depth = torch.empty((c, height, width), dtype=torch.float32,
+                            device=pos.device)
+        seg = torch.empty((c, height, width), dtype=torch.int32,
+                          device=pos.device)
+    rp = render_params(params, scene, group, width, height)
+
+    def go():
+        global launches
+        with span("kernel.render", cameras=c), torch.cuda.device(pos.device):
             err = fn(pos.data_ptr(), pos.stride(0), pos.stride(1),
                      quat.data_ptr(), quat.stride(0), quat.stride(1),
                      rgba.data_ptr(), rgba.stride(0),
@@ -154,4 +156,5 @@ def render_drones(params, scene: render.Scene, pos: torch.Tensor,
         if err != 0:
             raise RuntimeError(f"render launch failed: CUDA error {err}")
         launches += 1
-        return (rgba, depth, seg) if depth_seg else rgba
+    graphs.launch(go)
+    return (rgba, depth, seg) if depth_seg else rgba

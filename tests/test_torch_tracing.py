@@ -6,7 +6,9 @@ tracing on and off, and the spans as `user_annotation` ranges in a
 fused path's plain version, 16 envs x 8 steps, 2 minibatches x 2
 epochs; the batched step's spans (`env.batched_step` and the kernel
 wrappers' `kernel.dyn_ctrl_step` and `kernel.render`) come from one RGB
-step of Hover on DYN with ONE_D_RPM actions, 3 envs."""
+step of Hover on DYN with ONE_D_RPM actions, 3 envs, and its `graphed`
+attribute from four (on a card the graphed step's capture and three
+replays; that case skips elsewhere)."""
 import json
 
 import pytest
@@ -166,7 +168,7 @@ def test_batched_step_spans_and_attributes():
         name: 1 for name in BATCHED}
     assert got["kernel.render"]["attrs"] == {"cameras": 3}
     assert got["kernel.dyn_ctrl_step"]["attrs"] == {"columns": 3}
-    assert got["env.batched_step"]["attrs"] == {}
+    assert got["env.batched_step"]["attrs"] == {"graphed": 0}
     parents = {(name, parent) for name, parent, *_ in rec.spans}
     assert parents == {("env.batched_step", None),
                        ("kernel.dyn_ctrl_step", "env.batched_step"),
@@ -203,3 +205,43 @@ def test_batched_step_bit_for_bit_with_tracing(tmp_path):
         events = json.load(f)["traceEvents"]
     names = [e["name"] for e in events if e.get("cat") == "user_annotation"]
     assert sorted(names) == sorted(BATCHED)
+
+
+def rgb_rollout(device, steps: int):
+    """`steps` chained RGB batched steps of 3 envs from the reset: every
+    call's results and its span's `graphed` attribute (None where nothing
+    was recorded)."""
+    cfg = AviaryConfig(P.CF2X, 1, Physics.DYN, 240, 30)
+    task = HoverTask(act=ActionType.ONE_D_RPM, obs=ObservationType.RGB)
+    reset_fn, step_fn = fast.make_batched_step(cfg, task, 3,
+                                               obs_layout="flat",
+                                               device=device)
+    state, _ = reset_fn()
+    results = []
+    for t in range(steps):
+        results.append(step_fn(state, torch.full((3, 1, 1), 0.1 * t,
+                                                  device=device)))
+        state = results[-1][0]
+    return results
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_batched_step_graphed_attribute_bit_for_bit(device):
+    """Four chained RGB steps with recording off and on: equal bit for
+    bit, and every `env.batched_step` span carries `graphed`: 0 on the
+    host; on a card 0 for the first call, which captures, and 1 for the
+    three replays."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the graphed batched step exists "
+                    "only there")
+    off = rgb_rollout(device, 4)
+    with profiling.recording() as rec:
+        on = rgb_rollout(device, 4)
+    for a, b in zip(off, on, strict=True):
+        for x, y in zip(leaves(a), leaves(b), strict=True):
+            assert torch.equal(x, y)
+    graphed = [s[4]["graphed"] for s in rec.spans
+               if s[0] == "env.batched_step"]
+    assert graphed == ([0, 0, 0, 0] if device == "cpu" else [0, 1, 1, 1])
+    assert rec.summary()["env.batched_step"]["attrs"] == {
+        "graphed": sum(graphed)}
