@@ -40,7 +40,8 @@ last line `{"ok": true, ...}` mean all passed):
   JAX package's multi-chip matrix against one process; a population
   split by member; a checkpoint saved at 2 ranks, resumed at 2 and 1.
 - `{"kernels": [...]}`: per kernel and main-path shape its device `ms`
-  (a CUDA graph's replays), `eager_ms`, launch geometry, ptxas figures
+  (a CUDA graph's replays), `eager_ms`, launch geometry, ptxas figures,
+  for K2 and K5 the blocks an SM holds at once and the launch's waves,
   and its least time (`bound_ms`, `bound_by`) from
   `portbench/counts/work.py`'s peaks; then the card's name and power
   limit as nvidia-smi prints them; then `{"ok": true, "device": {...}}`.
@@ -308,6 +309,19 @@ def ptxas_figures(log):
     stack, stores, loads, regs = (int(x) for x in m.groups())
     return {"registers": regs, "stack_frame_bytes": stack,
             "spill_store_bytes": stores, "spill_load_bytes": loads}
+
+
+def occupancy(kernel, geometry, pyb):
+    """Blocks of `kernel`'s launch of `geometry` (blocks, threads) that one
+    SM of the card holds at once (the CUDA runtime's occupancy for the
+    kernel as built, with its launcher's shared memory; `pyb`: the PYB
+    family), and the launch's waves: its blocks over those of all SMs."""
+    from gym_pybullet_drones_tpu_torch import _build
+    blocks, threads = geometry
+    per_sm = _build.resident_blocks(kernel, threads // 32, pyb)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"resident_blocks_per_sm": per_sm,
+            "waves": blocks / (per_sm * sms)}
 
 
 def eager_ms(fn, reps, warmup=3):
@@ -936,6 +950,7 @@ def main():
                "envs_by_case": counts,
                "left_out_at_a_tie": int(tied.sum()) - n_unsettled,
                "geometry": _build.launch_geometry("env_ctrl_step", b, n)}
+        rec.update(occupancy("env_ctrl_step", rec["geometry"], pyb))
         if geometry:
             rec["left_out_unsettled"] = n_unsettled
         if timed:
@@ -1188,6 +1203,7 @@ def main():
         rec = {"kernel": "fused_env_step", "config": name, "B": b,
                "rows": [spec.carry_rows, spec.out_rows],
                "geometry": _build.launch_geometry("fused_env_step", b, n)}
+        rec.update(occupancy("fused_env_step", rec["geometry"], pyb))
         if routing:
             d_goal = torch.stack([torch.sqrt(sum(
                 (t[k] - o[k]) ** 2 for k in range(3)))
@@ -1257,6 +1273,8 @@ def main():
     # pair under every aero effect with both obstacles
     pcfg, ptask = make_routing_config(num_drones=4)
     fused_case("routing4x4096_pyb", pcfg, ptask, 4096)
+    # the benchmark's routing cell: 16384 fleets, 512 blocks of 4 warps
+    fused_case("routing4x16384_pyb", pcfg, ptask, 16384)
     acfg = AviaryConfig(P.CF2X, 1, Physics.PYB_GND_DRAG_DW, 240, 30)
     atask = HoverTask(act=ActionType.RPM)
     fused_case("hover4096_pyb_aero", acfg, atask, 4096)
@@ -1585,6 +1603,16 @@ def main():
     routing_pyb_counts = {"env_ctrl_step": kernel_env.launches,
                           "fused_env_step": kernel_fused.launches}
     routing_pyb["launches"] = routing_pyb_counts
+    # the same at the benchmark's routing cell's size, with its traffic's
+    # 0.1 N(0,1) waypoint actions: 16384 fleets, one wave of 512 blocks
+    reset_counts()
+    routing_pyb["routing4x16384_pyb"] = random_rollout(
+        "routing4x16384_pyb", pcfg, ptask, 16384, 512)
+    routing_pyb["routing4x16384_pyb"]["launches"] = {
+        "env_ctrl_step": kernel_env.launches,
+        "fused_env_step": kernel_fused.launches}
+    # K2's row of the kernel table (K5 has no row at this size)
+    cell_counts = {"fused_env_step": kernel_fused.launches}
     emit(routing_pyb)
     if kernel_dyn.launches or kernel_pid.launches:
         raise AssertionError("routing PYB went through a DYN kernel")
@@ -1627,7 +1655,7 @@ def main():
     if kernel_dyn.launches or kernel_pid.launches:
         raise AssertionError("hover PYB went through a DYN kernel")
     for counts in (hover_counts, multi_counts, routing_counts,
-                   routing_pyb_counts, hover_aero_counts):
+                   routing_pyb_counts, cell_counts, hover_aero_counts):
         if min(counts.values()) == 0:
             raise AssertionError(f"a kernel was never launched: {counts}")
 
@@ -3172,6 +3200,7 @@ def main():
                            ("multihover2x8192", multi_counts),
                            ("routing4x4096", routing_counts),
                            ("routing4x4096_pyb", routing_pyb_counts),
+                           ("routing4x16384_pyb", cell_counts),
                            ("hover4096_pyb_aero", hover_aero_counts),
                            ("ppo_hover8192", ppo_counts),
                            ("ppo_hover_pyb_learn", learn_counts),
@@ -3200,7 +3229,9 @@ def main():
                 "threads": rec["geometry"][1],
                 **{k: ptxas.get(name, {}).get(k) for k in (
                     "registers", "stack_frame_bytes", "spill_store_bytes",
-                    "spill_load_bytes")}})
+                    "spill_load_bytes")},
+                **{k: rec[k] for k in ("resident_blocks_per_sm", "waves")
+                   if k in rec}})
             if name in kernel_floors:
                 kernels[-1].update(launch_floor_ms=launch_floor_ms,
                                    **kernel_floors[name])

@@ -170,6 +170,9 @@ _ARGTYPES = {
 
 _loaded: dict | None = None
 _geometry: dict = {}                # kernel name -> its C geometry function
+# kernel name -> its C occupancy function, for the sources that export one
+# (`<entry>_occupancy`)
+_occupancy: dict = {}
 build_seconds: float | None = None  # wall time `load()` spent in `build()`
 # wall time of the first `load()` as a whole: the build, every library's
 # load and its parameter struct's check
@@ -263,6 +266,12 @@ def load() -> dict:
                         ctypes.POINTER(ctypes.c_int)]
         geo.restype = None
         _geometry[name] = geo
+        if hasattr(lib, entry + "_occupancy"):
+            occ = getattr(lib, entry + "_occupancy")
+            occ.argtypes = [ctypes.c_int, ctypes.c_int,
+                            ctypes.POINTER(ctypes.c_int)]
+            occ.restype = ctypes.c_int
+            _occupancy[name] = occ
     _loaded = fns
     load_seconds = time.perf_counter() - t0
     return fns
@@ -277,3 +286,18 @@ def launch_geometry(name: str, b: int, n_drones: int = 1) -> tuple:
     blocks, threads = ctypes.c_int(), ctypes.c_int()
     _geometry[name](b, n_drones, ctypes.byref(blocks), ctypes.byref(threads))
     return blocks.value, threads.value
+
+
+def resident_blocks(name: str, n_drones: int, pyb: bool) -> int:
+    """Blocks of kernel `name`'s launch over envs of `n_drones` drones
+    (`pyb`: the PYB family, whose pose buffers take shared memory) that
+    one SM of the current device holds at once: the CUDA runtime's
+    occupancy for the kernel as built, its block and the launcher's own
+    shared memory, from the function of the same source
+    (`<entry>_occupancy`)."""
+    load()
+    blocks = ctypes.c_int()
+    err = _occupancy[name](n_drones, int(pyb), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"{name} occupancy query failed: CUDA error {err}")
+    return blocks.value

@@ -669,49 +669,66 @@ GPD_HD void gpd_pyb_drone_substep(const GpdStepParams& P, float* s,
     }
 
     // ---- contact solve on the PRE-substep pose (PGS) ----
+    // Each rim contact's constants of the substep (lever arm, active flag,
+    // speculative target velocity, effective masses) are a row of a table
+    // in the thread's local memory (cached in L1), read one contact ahead
+    // of its impulses; in registers they would hold 32 of them through the
+    // sweeps.  `volatile` keeps each read inside the sweep where it stands.
     const float nvec[3] = {0.0f, 0.0f, 1.0f};
     const float t1v[3] = {1.0f, 0.0f, 0.0f};
     const float t2v[3] = {0.0f, 1.0f, 0.0f};
     const float rim_x[4] = {y.rc, 0.0f, -y.rc, 0.0f};
     const float rim_y[4] = {0.0f, y.rc, 0.0f, -y.rc};
-    float arms[4][3], pens[4], kn[4], kt[2][4];
+    volatile float rim[4][8];  // arm3, active, target, kn, kt_x, kt_y
     float acc_n[4], acc_t[2][4];
 #pragma unroll
     for (int ki = 0; ki < 4; ++ki) {
         const float body[3] = {rim_x[ki], rim_y[ki], y.z_lo};
-        gpd_mv(r, body, arms[ki]);
-        pens[ki] = -(s[2] + arms[ki][2]);
-        kn[ki] = c.inv_m + gpd_keff1(r, c, arms[ki], nvec);
-        kt[0][ki] = c.inv_m + gpd_keff1(r, c, arms[ki], t1v);
-        kt[1][ki] = c.inv_m + gpd_keff1(r, c, arms[ki], t2v);
+        float arm[3];
+        gpd_mv(r, body, arm);
+        const float pen = -(s[2] + arm[2]);
+        rim[ki][3] = pen > -y.slop ? 1.0f : 0.0f;
+        // Baumgarte push-out when penetrating, closing limit depth/dt when
+        // separated within the slop window
+        rim[ki][4] = pen > 0.0f ? y.erp_dt * pen : y.inv_dt * pen;
+        rim[ki][5] = c.inv_m + gpd_keff1(r, c, arm, nvec);
+        rim[ki][6] = c.inv_m + gpd_keff1(r, c, arm, t1v);
+        rim[ki][7] = c.inv_m + gpd_keff1(r, c, arm, t2v);
+        rim[ki][0] = arm[0]; rim[ki][1] = arm[1]; rim[ki][2] = arm[2];
         acc_n[ki] = 0.0f; acc_t[0][ki] = 0.0f; acc_t[1][ki] = 0.0f;
     }
     // static obstacles as centred contacts: no lever arm, no angular term.
-    // The obstacle loops unroll over the table's capacity and stop at the
-    // configured count, so these arrays stay in registers.
+    // The obstacle loops run over the configured count, rolled, so these
+    // arrays are a table indexed at run time in the thread's local memory,
+    // touched only where obstacles are configured: in registers they would
+    // hold 48 of them through the sweeps at any count.
     float en[GPD_MAX_OBSTACLES][3], edepth[GPD_MAX_OBSTACLES];
     float eacc[GPD_MAX_OBSTACLES], etan[GPD_MAX_OBSTACLES];
-#pragma unroll
-    for (int e = 0; e < GPD_MAX_OBSTACLES; ++e) {
-        en[e][0] = en[e][1] = en[e][2] = edepth[e] = 0.0f;
-        if (e < y.n_obstacles) gpd_obstacle_contact(y, e, s, en[e], edepth[e]);
+#pragma unroll 1
+    for (int e = 0; e < y.n_obstacles; ++e) {
+        gpd_obstacle_contact(y, e, s, en[e], edepth[e]);
         eacc[e] = 0.0f; etan[e] = 0.0f;
     }
+    float cur[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) cur[k] = rim[0][k];
 #pragma unroll 1
     for (int it = 0; it < y.sweeps; ++it) {
 #pragma unroll
         for (int ki = 0; ki < 4; ++ki) {
-            const float* arm = arms[ki];
-            const float a = pens[ki] > -y.slop ? 1.0f : 0.0f;
-            // normal impulse (accumulated, clamped >= 0); speculative
-            // target: Baumgarte push-out when penetrating, closing limit
-            // depth/dt when separated within the slop window
+            // the next contact's row (after the last, the next sweep's
+            // first), in flight during this contact's impulses
+            float nxt[8];
+#pragma unroll
+            for (int k = 0; k < 8; ++k) nxt[k] = rim[(ki + 1) & 3][k];
+            const float arm[3] = {cur[0], cur[1], cur[2]};
+            const float a = cur[3], tgt = cur[4], kn = cur[5];
+            const float kt[2] = {cur[6], cur[7]};
+            // normal impulse (accumulated, clamped >= 0)
             float wxr[3], t[3], dwv[3];
             gpd_cross(w, arm, wxr);
             const float vn = v[2] + wxr[2];
-            const float tgt = pens[ki] > 0.0f ? y.erp_dt * pens[ki]
-                                              : y.inv_dt * pens[ki];
-            float dj = (tgt - vn) / kn[ki];
+            float dj = (tgt - vn) / kn;
             float new_acc = gpd_at_least(acc_n[ki] + dj, 0.0f) * a;
             dj = new_acc - acc_n[ki];
             acc_n[ki] = new_acc;
@@ -726,7 +743,7 @@ GPD_HD void gpd_pyb_drone_substep(const GpdStepParams& P, float* s,
             for (int td = 0; td < 2; ++td) {
                 gpd_cross(w, arm, wxr);
                 const float vt = v[td] + wxr[td];
-                dj = -vt / kt[td][ki];
+                dj = -vt / kt[td];
                 new_acc = gpd_clip(acc_t[td][ki] + dj, -lim, lim) * a;
                 dj = new_acc - acc_t[td][ki];
                 acc_t[td][ki] = new_acc;
@@ -738,10 +755,11 @@ GPD_HD void gpd_pyb_drone_substep(const GpdStepParams& P, float* s,
                 w[0] = w[0] + dwv[0]; w[1] = w[1] + dwv[1];
                 w[2] = w[2] + dwv[2];
             }
-        }
 #pragma unroll
-        for (int e = 0; e < GPD_MAX_OBSTACLES; ++e) {
-            if (e >= y.n_obstacles) break;
+            for (int k = 0; k < 8; ++k) cur[k] = nxt[k];
+        }
+#pragma unroll 1
+        for (int e = 0; e < y.n_obstacles; ++e) {
             const float* n_ = en[e];
             const float depth = edepth[e];
             const float a = depth > -y.slop ? 1.0f : 0.0f;
@@ -955,37 +973,35 @@ __device__ __forceinline__ void gpd_pyb_ctrl_substeps(
 #pragma unroll
         for (int k = 0; k < GPD_PS; ++k) GPD_POSE(cur, d, k) = s[k];
         GPD_SYNC();
-        float rot_own[9], acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-        gpd_rot_rows(s + 3, rot_own);
+        // the pose buffer holds this drone's post-step pose bit for bit, so
+        // the pair loop reads each pair's poses from it by index and keeps
+        // nothing of s in registers; s comes back from it afterwards
+        float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll 1
         for (int j = 0; j < n; ++j) {
             if (j == d) continue;
-            float o[GPD_PS], rot_o[9];
-#pragma unroll
-            for (int k = 0; k < GPD_PS; ++k) o[k] = GPD_POSE(cur, j, k);
-            gpd_rot_rows(o + 3, rot_o);
             // one call site for both orientations: the pair's first member
             // is the lower index
             const bool first = d < j;
+            const int lo = first ? d : j, hi = first ? j : d;
             float a[GPD_PS], b[GPD_PS], ra[9], rb[9];
 #pragma unroll
             for (int k = 0; k < GPD_PS; ++k) {
-                a[k] = first ? s[k] : o[k];
-                b[k] = first ? o[k] : s[k];
+                a[k] = GPD_POSE(cur, lo, k);
+                b[k] = GPD_POSE(cur, hi, k);
             }
-#pragma unroll
-            for (int k = 0; k < 9; ++k) {
-                ra[k] = first ? rot_own[k] : rot_o[k];
-                rb[k] = first ? rot_o[k] : rot_own[k];
-            }
+            gpd_rot_rows(a + 3, ra);
+            gpd_rot_rows(b + 3, rb);
             float imp[3], r_i[3], r_j[3];
             gpd_pair_impulse(P, a, b, ra, rb, imp, r_i, r_j);
-            float arm[3], own_imp[3], t[3], dw[3];
+            float arm[3], own_imp[3], rot_own[9], t[3], dw[3];
 #pragma unroll
             for (int k = 0; k < 3; ++k) {
                 arm[k] = first ? r_i[k] : r_j[k];
                 own_imp[k] = first ? imp[k] : -imp[k];
             }
+#pragma unroll
+            for (int k = 0; k < 9; ++k) rot_own[k] = first ? ra[k] : rb[k];
             gpd_cross(arm, own_imp, t);
             gpd_iinv_w(rot_own, P.drone, t, dw);
 #pragma unroll
@@ -994,6 +1010,8 @@ __device__ __forceinline__ void gpd_pyb_ctrl_substeps(
                 acc[3 + k] = acc[3 + k] + dw[k];
             }
         }
+#pragma unroll
+        for (int k = 0; k < GPD_PS; ++k) s[k] = GPD_POSE(cur, d, k);
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
             s[7 + k] = s[7 + k] + P.drone.inv_m * acc[k];

@@ -149,6 +149,24 @@ extern "C" void gpd_env_ctrl_step_geometry(int B, int n, int* blocks,
     *threads = GPD_ENVS * n;
 }
 
+// Dynamic shared memory of that launch: the two pose buffers of the PYB
+// family with n > 1, else none.
+static size_t gpd_env_ctrl_step_smem(int n, int pyb) {
+    return pyb && n > 1 ? (size_t)2 * n * GPD_PS * GPD_ENVS * sizeof(float)
+                        : 0;
+}
+
+// Blocks of that launch (pyb: the PYB family) that one SM of the current
+// device holds at once, for the kernel as built.  Returns the CUDA error.
+extern "C" int gpd_env_ctrl_step_occupancy(int n, int pyb,
+                                           int* blocks_per_sm) {
+    *blocks_per_sm = 0;
+    if (n < 1 || n > GPD_MAX_DRONES) return (int)cudaErrorInvalidValue;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, env_ctrl_step_kernel, GPD_ENVS * n,
+        gpd_env_ctrl_step_smem(n, pyb));
+}
+
 // Launches on `stream`, does not synchronise, allocates nothing.  B counts
 // ENVS; every block holds B * n_drones columns at the row stride `ld`
 // (elements between rows).  `pid_in`/`pid_out` (both or neither),
@@ -163,9 +181,8 @@ extern "C" int gpd_env_ctrl_step(const float* state, const float* act,
     if (n < 1 || n > GPD_MAX_DRONES) return (int)cudaErrorInvalidValue;
     int blocks, threads;
     gpd_env_ctrl_step_geometry(B, n, &blocks, &threads);
-    const size_t floats = p->pyb.enabled && n > 1
-                              ? (size_t)2 * n * GPD_PS * GPD_ENVS : 0;
-    env_ctrl_step_kernel<<<blocks, threads, floats * sizeof(float),
+    env_ctrl_step_kernel<<<blocks, threads,
+                           gpd_env_ctrl_step_smem(n, p->pyb.enabled != 0),
                            (cudaStream_t)stream>>>(
         state, act, pid_in, last_rpm, out, rpm_out, pid_out, obs12, B, ld,
         *p);

@@ -20,6 +20,15 @@
 // family); the layout spreads 4096 envs of 4 drones over 128 blocks of 4
 // warps instead of 32 blocks, with a chain of one drone each.
 //
+// Since that chain waits on latency, warps an SM are what hide it, and the
+// kernel is built for two blocks of the largest fleet an SM: at most 128
+// registers a thread.  A fleet of 4 then fits 4 blocks (16 warps) an SM,
+// and 16384 such fleets (512 blocks) run in one wave of the card's 528.
+// The budget is met with short live ranges, not spills: the PID rows are
+// stored right after the tick, the PYB pair loop reads both poses of a
+// pair from the shared pose buffer, and the contact solve keeps its rim
+// and obstacle constants in tables in local memory (drone_kernels.cuh).
+//
 // Pass 1, per thread: action -> rpm (the embedded PID when the family has
 // one), then the physics on the drone's state in registers: the DYN
 // substeps alone, or the coupled PYB substeps (gpd_pyb_ctrl_substeps),
@@ -43,7 +52,7 @@
 
 #define GPD_RING_CHUNK 16  // history-ring loads in flight per thread
 
-__global__ void __launch_bounds__(GPD_ENVS * GPD_MAX_DRONES)
+__global__ void __launch_bounds__(GPD_ENVS * GPD_MAX_DRONES, 2)
 fused_env_step_kernel(const float* __restrict__ carry,
                       const float* __restrict__ act,
                       float* __restrict__ carry_out,
@@ -75,7 +84,7 @@ fused_env_step_kernel(const float* __restrict__ carry,
     // thread past the last env steps a drone at rest at the origin
     float s[GPD_S], a[4] = {0.0f, 0.0f, 0.0f, 0.0f}, rpm[4];
     float w[3] = {0.0f, 0.0f, 0.0f}, last[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    float pid[GPD_PR], npid[GPD_PR];
+    float pid[GPD_PR];
 #pragma unroll
     for (int k = 0; k < GPD_S; ++k) s[k] = k == 6 ? 1.0f : 0.0f;
 #pragma unroll
@@ -102,10 +111,17 @@ fused_env_step_kernel(const float* __restrict__ carry,
         }
     }
     if (has_pid) {
-        // embedded DSL-PID tick (always the CF2X controller)
-        float tgt[GPD_TR];
+        // embedded DSL-PID tick (always the CF2X controller); its new rows
+        // are stored now, so that nothing of them stays live through the
+        // physics: pass 2 zeroes them for a done env
+        float tgt[GPD_TR], npid[GPD_PR];
         gpd_pid_setpoints(p, s, a, tgt);
         gpd_pid_tick(p.pid, p.ctrl_dt, s, pid, tgt, rpm, npid);
+        if (valid) {
+#pragma unroll
+            for (int k = 0; k < GPD_PR; ++k)
+                AT(carry_out, base + pid_off + k) = npid[k];
+        }
     } else {
         gpd_action_to_rpm(p, a, rpm);
     }
@@ -182,14 +198,15 @@ fused_env_step_kernel(const float* __restrict__ carry,
     if (valid) {
 #pragma unroll
         for (int k = 0; k < GPD_S; ++k) AT(carry_out, base + k) = s[k];
-        // a done env's last rpm and PID rows are zeroed
+        // a done env's last rpm and PID rows are zeroed (a live env's PID
+        // rows were stored after the tick)
 #pragma unroll
         for (int k = 0; k < GPD_LR; ++k)
             AT(carry_out, base + GPD_S + k) = done ? 0.0f : rpm[k];
-        if (has_pid) {
+        if (has_pid && done) {
 #pragma unroll
             for (int k = 0; k < GPD_PR; ++k)
-                AT(carry_out, base + pid_off + k) = done ? 0.0f : npid[k];
+                AT(carry_out, base + pid_off + k) = 0.0f;
         }
 
         // observation rows from the SELECTED (post-reset) state
@@ -254,6 +271,25 @@ extern "C" void gpd_fused_env_step_geometry(int B, int n, int* blocks,
     *threads = GPD_ENVS * n;
 }
 
+// Dynamic shared memory of that launch: task shares, positions and the
+// done flag, and under the PYB family with n > 1 the two pose buffers.
+static size_t gpd_fused_env_step_smem(int n, int pyb) {
+    size_t floats = (size_t)(7 * n + 1) * GPD_ENVS;
+    if (pyb && n > 1) floats += (size_t)2 * n * GPD_PS * GPD_ENVS;
+    return floats * sizeof(float);
+}
+
+// Blocks of that launch (pyb: the PYB family) that one SM of the current
+// device holds at once, for the kernel as built.  Returns the CUDA error.
+extern "C" int gpd_fused_env_step_occupancy(int n, int pyb,
+                                            int* blocks_per_sm) {
+    *blocks_per_sm = 0;
+    if (n < 1 || n > GPD_MAX_DRONES) return (int)cudaErrorInvalidValue;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, fused_env_step_kernel, GPD_ENVS * n,
+        gpd_fused_env_step_smem(n, pyb));
+}
+
 // Launches on `stream`, does not synchronise, allocates nothing.  All four
 // blocks share the row stride `ld` (elements between rows); `carry_out`
 // must not alias `carry`.  Returns cudaGetLastError().
@@ -265,9 +301,8 @@ extern "C" int gpd_fused_env_step(const float* carry, const float* act,
     if (n < 1 || n > GPD_MAX_DRONES) return (int)cudaErrorInvalidValue;
     int blocks, threads;
     gpd_fused_env_step_geometry(B, n, &blocks, &threads);
-    size_t floats = (size_t)(7 * n + 1) * GPD_ENVS;
-    if (p->pyb.enabled && n > 1) floats += (size_t)2 * n * GPD_PS * GPD_ENVS;
-    fused_env_step_kernel<<<blocks, threads, floats * sizeof(float),
+    fused_env_step_kernel<<<blocks, threads,
+                            gpd_fused_env_step_smem(n, p->pyb.enabled != 0),
                             (cudaStream_t)stream>>>(carry, act, carry_out,
                                                     outs, B, ld, *p);
     return (int)cudaGetLastError();

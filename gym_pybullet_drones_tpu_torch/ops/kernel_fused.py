@@ -55,8 +55,11 @@ through shared memory at a barrier per substep.  There the step also reads
 the `last_rpm` rows (the stale drag of substep 0; zero after an auto-reset)
 and the world `ang_v` rows, which are carried state; the `rpy_rates` rows
 pass through.  What bounds that branch is operations, not bytes: around
-3,000 per drone and substep, in one thread's dependent chain.  It is a
-run-time branch of the one kernel.  `cfg.solver_iterations` is a run-time
+3,000 per drone and substep, in one thread's dependent chain, whose
+latency only more warps an SM hide: the kernel is built for at most 128
+registers a thread, so that 4 blocks of the 4-drone fleet fit an SM and
+16384 such fleets run in one wave (`launch_waves`).  It is a run-time
+branch of the one kernel.  `cfg.solver_iterations` is a run-time
 value of the struct: any sweep count `envs/core.step` takes runs here as
 well.
 
@@ -351,6 +354,20 @@ def fused_env_step_plain(spec: FusedSpec, carry: torch.Tensor,
     return carry_out, outs
 
 
+@functools.lru_cache(maxsize=64)
+def launch_waves(b: int, n: int, pyb: bool, device: torch.device) -> float:
+    """Waves of the kernel's launch over `b` envs of `n` drones on the
+    CUDA `device`: its blocks over the blocks that all SMs hold at once
+    (the kernel's resident blocks an SM, `_build.resident_blocks`, times
+    the SMs).  At most 1 means every block runs in the first wave.
+    Computed once a shape and device."""
+    blocks, _ = _build.launch_geometry("fused_env_step", b, n)
+    with torch.cuda.device(device):
+        per_sm = _build.resident_blocks("fused_env_step", n, pyb)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return blocks / (per_sm * sms)
+
+
 def fused_env_step(spec: FusedSpec, carry: torch.Tensor,
                    action_rows: torch.Tensor):
     """The kernel's wrapper: one fully-fused control step.
@@ -361,10 +378,11 @@ def fused_env_step(spec: FusedSpec, carry: torch.Tensor,
     synchronisation; outputs from `torch.empty`); a CPU tensor runs
     `fused_env_step_plain`.  Anything the kernel does not take raises.
     The whole call, the CPU path included, is the span
-    `kernel.fused_env_step` (`utils.profiling.span`).
+    `kernel.fused_env_step` (`utils.profiling.span`); a launch gives it
+    the attribute `waves` (`launch_waves`) where the span is on.
     """
     global launches
-    with span("kernel.fused_env_step"):
+    with span("kernel.fused_env_step") as sp:
         check_rows("carry", carry, spec.carry_rows)
         check_rows("action_rows", action_rows, spec.n * spec.act_dim,
                    like=carry)
@@ -386,6 +404,9 @@ def fused_env_step(spec: FusedSpec, carry: torch.Tensor,
             raise RuntimeError(
                 f"fused_env_step launch failed: CUDA error {err}")
         launches += 1
+        if sp is not None:
+            sp.attrs["waves"] = launch_waves(
+                b, spec.n, spec.cfg.physics != Physics.DYN, carry.device)
         return carry_out, outs
 
 

@@ -94,7 +94,9 @@ class _Span:
 def span(name: str, **attrs):
     """A context manager around one piece of the program's work (see the
     module docstring); `attrs` are numbers the host already holds, summed
-    per name in a record."""
+    per name in a record.  `with span(...) as sp` gives None when off and
+    the span otherwise, whose `attrs` dict takes more of them until it
+    closes."""
     if _record is None and not _autograd_profiler._is_profiler_enabled:
         return OFF
     return _Span(name, attrs, _record)
